@@ -7,13 +7,23 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
 It builds the port's CUDA kernels from ``grayskull_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel bit for bit to its plain PyTorch version on the
-card, drives the main path (``grayskull_tpu_torch.preprocess``: blur(2) -> Otsu
--> threshold -> Sobel on 256 frames of 1024x1024) and checks that it ran
-through every kernel and agrees with the plain path and the numpy goldens, then
-times it with CUDA events.  Each phase prints one JSON line; then come the
-per-kernel summary line and the card's ``nvidia-smi`` name and power limit, and
-the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
-exit code is non-zero; without a CUDA device it exits 1 and prints no result.
+card, and drives the port's two paths, each with the launch counts set to 0
+just before it and read just after:
+
+* preprocess (``grayskull_tpu_torch.preprocess``: blur(2) -> Otsu -> threshold
+  -> Sobel on 256 frames of 1024x1024), checked against the plain path and the
+  numpy goldens;
+* faces (``grayskull_tpu_torch.detect_faces``: integral -> LBP cascade over
+  the full scale ladder -> the first 100 rects per frame, on 32 frames of
+  640x480 at step 1), checked against the plain path on the card (every
+  ladder scale's hit mask of the 32 frames, and the rect tables) and, for two
+  frames, on the CPU.
+
+Then it times both with CUDA events.  Each phase prints one JSON line; then
+come the per-kernel summary line and the card's ``nvidia-smi`` name and power
+limit, and the last line is ``{"ok": true, "device": {...}}``.  Any failure
+raises and the exit code is non-zero; without a CUDA device it exits 1 and
+prints no result.
 """
 
 import json
@@ -28,7 +38,10 @@ import torch
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.io import read_pgm
+from grayskull_tpu_torch.core import LbpCascade
 from grayskull_tpu_torch.kernels import _build
+from grayskull_tpu_torch.kernels.integral import u32_to_int64
+from grayskull_tpu_torch.ops.lbp import _grid_plan
 from grayskull_tpu_torch.profiling import timeit
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -36,6 +49,11 @@ METRIC = "fused_blur_otsu_threshold_sobel_1MP_frames_per_sec"
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612), (4, 1024, 1024)]
 RADII = (1, 2, 6, 7, 16)
 MAIN_N, MAIN_H, MAIN_W, MAIN_R = 256, 1024, 1024, 2
+FACES_METRIC = "lbp_windows_per_sec"
+FACES_N, FACES_H, FACES_W, FACES_STEP, FACES_CAP = 32, 480, 640, 1, 100
+LADDER = (1.2, 1.0, 4.0)  # scale_factor, min_scale, max_scale
+INTEGRAL_SHAPES = [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 17, 129), (32, 480, 640),
+                   (1, 4200, 4200)]  # the last is all 255s: its sums pass 2^32
 KERNELS = {
     "blur_hist": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/preproc.cu",
                   "replaces": "grayskull_tpu/kernels/preproc.py:273",
@@ -45,11 +63,22 @@ KERNELS = {
     "threshold_sobel": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/preproc.cu",
                         "replaces": "grayskull_tpu/kernels/preproc.py:794",
                         "also_replaces": "grayskull_tpu/kernels/preproc.py:569"},
+    "integral": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/integral.cu",
+                 "replaces": "grayskull_tpu/kernels/integral.py:111"},
+    "lbp_eval_scale": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/lbp.cu",
+                       "replaces": "grayskull_tpu/kernels/lbp.py:396"},
 }
+
+PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
+FACES_KERNELS = ("integral", "lbp_eval_scale")
 
 
 def emit(phase, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def _wide(t):
+    return u32_to_int64(t) if t.dtype == torch.uint32 else t.to(torch.int64)
 
 
 class Checker:
@@ -67,7 +96,7 @@ class Checker:
         if got.shape != ref.shape or got.dtype != ref.dtype:
             raise AssertionError(f"{name} {what}: {tuple(got.shape)} {got.dtype} vs "
                                  f"{tuple(ref.shape)} {ref.dtype}")
-        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
+        err = int((_wide(got) - _wide(ref)).abs().max()) if got.numel() else 0
         self.max_err[name] = max(self.max_err[name], err)
         self.checks[name] += 1
         if err != 0:
@@ -81,14 +110,14 @@ def card_line():
     return out.strip().splitlines()[0].strip()
 
 
-def lena_batch(n, h, w):
-    """``bench.py``'s frames: lena tiled to h x w, rolled 13*i columns per frame."""
+def lena_batch(n, h, w, roll=13):
+    """``bench.py``'s frames: lena tiled to h x w, rolled ``roll``*i columns per frame."""
     tile = read_pgm(os.path.join(HERE, "tests", "golden", "testdata", "lena.pgm"))
     if tile is None:
         raise FileNotFoundError("tests/golden/testdata/lena.pgm")
     reps = (-(-h // tile.shape[0]), -(-w // tile.shape[1]))
     frame = np.tile(tile, reps)[:h, :w]
-    return np.stack([np.roll(frame, 13 * i, axis=1) for i in range(n)])
+    return np.stack([np.roll(frame, roll * i, axis=1) for i in range(n)])
 
 
 def otsu_cases(rng):
@@ -149,7 +178,7 @@ def phase_main_path(chk, dev):
     outs = [gt.preprocess(batch, MAIN_R) for batch in (lena, noise)]
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    missing = [name for name in KERNELS if launches.get(name, 0) < 1]
+    missing = [name for name in PREPROCESS_KERNELS if launches.get(name, 0) < 1]
     if missing:
         raise AssertionError(f"main path did not launch {missing}: {launches}")
     for batch, out, label in zip((lena, noise), outs, ("lena", "random")):
@@ -222,6 +251,160 @@ def phase_timing(batch, card):
     return times
 
 
+def synthetic_cascade():
+    """``tests/test_lbp.py``'s 8x8 cascade: 3 features, 4 weaks, a back-loaded stage split."""
+    rng = np.random.default_rng(5)
+    nweaks = 4
+    return LbpCascade(
+        window_w=8, window_h=8,
+        features=np.array([[0, 0, 2, 2], [1, 1, 2, 2], [2, 0, 1, 2]], np.int8),
+        weak_feature_idx=np.array([0, 2, 1, 0], np.uint16),
+        weak_left_val=rng.uniform(-1, 0, nweaks).astype(np.float32),
+        weak_right_val=rng.uniform(0, 1, nweaks).astype(np.float32),
+        weak_subset_offset=np.arange(0, 8 * nweaks, 8, dtype=np.uint16),
+        weak_num_subsets=np.full(nweaks, 8, np.uint16),
+        subsets=rng.integers(-2**31, 2**31, 8 * nweaks, dtype=np.int64).astype(np.int32),
+        stage_weak_start=np.array([0, 1], np.uint16),
+        stage_nweaks=np.array([1, 3], np.uint16),
+        stage_threshold=np.array([-0.2, 0.1], np.float32),
+    )
+
+
+def faces_args(cascade):
+    return (cascade, FACES_CAP, *LADDER, FACES_STEP)
+
+
+def phase_faces_kernels(chk, rng, dev):
+    for shape in INTEGRAL_SHAPES:
+        if shape == INTEGRAL_SHAPES[-1]:
+            imgs = torch.full(shape, 255, dtype=torch.uint8, device=dev)
+        else:
+            imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        got = K.integral(imgs)
+        chk.same("integral", got, K.integral_plain(imgs), f"{shape}")
+    wrap_corner = int(u32_to_int64(got[0, -1, -1]))
+    if wrap_corner != (255 * 4200 * 4200) % 2**32:
+        raise AssertionError(f"integral of the 255 frame ends in {wrap_corner}")
+
+    cascade = gt.load_frontalface()
+    ii = K.integral(torch.from_numpy(lena_batch(2, FACES_H, FACES_W, roll=7)).to(dev))
+    hits = {}
+    for step in (1, 2, 3):
+        for scale, _, _, ny, nx in _grid_plan(cascade, FACES_H, FACES_W, *LADDER, step):
+            got = K.lbp_eval_scale(cascade, ii, scale, ny, nx, step)
+            chk.same("lbp_eval_scale", got,
+                     K.lbp_eval_scale_plain(cascade, ii, scale, ny, nx, step),
+                     f"640x480 scale={scale} step={step}")
+            hits[f"step{step}"] = hits.get(f"step{step}", 0) + int(got.sum())
+    for y, x in ((0, 0), (20, 10), (200, 300), (FACES_H - 24, FACES_W - 24)):
+        chk.same("lbp_eval_scale", K.lbp_eval_scale(cascade, ii, 1.0, 1, 1, 1, (y, x)),
+                 K.lbp_eval_scale_plain(cascade, ii, 1.0, 1, 1, 1, (y, x)), f"window ({y}, {x})")
+
+    syn = synthetic_cascade()
+    sii = K.integral(torch.from_numpy(rng.integers(0, 256, (2, 40, 256), dtype=np.uint8)).to(dev))
+    for scale in (1.0, 1.5):
+        win = int(np.float32(8) * np.float32(scale))
+        for step in (1, 2):
+            ny, nx = (40 - win) // step + 1, (256 - win) // step + 1
+            chk.same("lbp_eval_scale", K.lbp_eval_scale(syn, sii, scale, ny, nx, step),
+                     K.lbp_eval_scale_plain(syn, sii, scale, ny, nx, step),
+                     f"synthetic scale={scale} step={step}")
+    torch.cuda.synchronize()
+    emit("faces_kernels_vs_plain", ok=True, integral_shapes=[list(s) for s in INTEGRAL_SHAPES],
+         wrap_corner=wrap_corner, lena_hits=hits,
+         checks={k: chk.checks[k] for k in FACES_KERNELS},
+         max_abs_err={k: chk.max_err[k] for k in FACES_KERNELS})
+
+
+def phase_faces_path(chk, dev):
+    cascade = gt.load_frontalface()
+    batch = torch.from_numpy(lena_batch(FACES_N, FACES_H, FACES_W, roll=7)).to(dev)
+    warm_s = gt.pipelines.warm_start(FACES_H, FACES_W, FACES_N, *faces_args(cascade))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out = gt.detect_faces(batch, *faces_args(cascade))
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    missing = [name for name in FACES_KERNELS if launches.get(name, 0) < 1]
+    if missing:
+        raise AssertionError(f"faces path did not launch {missing}: {launches}")
+    if tuple(out.n.shape) != (FACES_N,) or tuple(out.x.shape) != (FACES_N, FACES_CAP):
+        raise AssertionError(f"faces path: wrong table shapes {tuple(out.x.shape)}")
+    # the tables keep 100 rects per frame; hold every hit mask of the ladder to the plain version
+    ii = K.integral(batch)
+    plan = _grid_plan(cascade, FACES_H, FACES_W, *LADDER, FACES_STEP)
+    windows_hit = 0
+    for scale, _, _, ny, nx in plan:
+        got = K.lbp_eval_scale(cascade, ii, scale, ny, nx, FACES_STEP)
+        chk.same("lbp_eval_scale", got,
+                 K.lbp_eval_scale_plain(cascade, ii, scale, ny, nx, FACES_STEP),
+                 f"faces path {FACES_N}-frame integral scale={scale}")
+        windows_hit += int(got.sum())
+    ref = gt.detect_faces(batch, *faces_args(cascade), force_reference=True)
+    for name, a, b in zip(gt.Rects._fields, out, ref):
+        chk.same("lbp_eval_scale", a, b, f"faces path {name} vs plain path")
+    rows = [0, FACES_N - 1]
+    on_cpu = gt.detect_faces(batch[rows].cpu(), *faces_args(cascade))
+    for name, a, b in zip(gt.Rects._fields, out, on_cpu):
+        if not torch.equal(a[rows].cpu(), b):
+            raise AssertionError(f"faces path {name}: card differs from the plain path on the CPU")
+    valid = torch.arange(FACES_CAP, device=dev)[None, :] < out.n[:, None]
+    inside = (out.x + out.w <= FACES_W) & (out.y + out.h <= FACES_H) & (out.w >= 24)
+    if not bool((inside | ~valid).all()) or bool((out.x.masked_fill(valid, 0) != 0).any()):
+        raise AssertionError("faces path: a rect lies outside the frame or a padded row is not 0")
+
+    g = np.load(os.path.join(HERE, "tests", "golden", "goldens.npz"))
+    if not np.array_equal(gt.integral(torch.from_numpy(g["input"]).to(dev)).cpu().numpy(),
+                          g["integral"]):
+        raise AssertionError("golden integral differs on the card")
+    for step in (1, 2, 3):
+        key = "lbp_rects" if step == 1 else f"lbp_rects_step{step}"
+        r = gt.detect_faces(torch.from_numpy(g["lbp_input"]).to(dev), cascade, 50, *LADDER, step)
+        n = int(r.n)
+        got = np.stack([v[:n].cpu().numpy() for v in (r.x, r.y, r.w, r.h)], axis=1)
+        if not np.array_equal(got, g[key].astype(np.int64).reshape(-1, 4)):
+            raise AssertionError(f"golden {key} differs on the card")
+    emit("faces_path", ok=True, frames=FACES_N, height=FACES_H, width=FACES_W, step=FACES_STEP,
+         max_rects=FACES_CAP, warm_start_seconds=warm_s, launches=launches,
+         hit_masks_checked=len(plan), windows_hit=windows_hit, detections=out.n.tolist(),
+         first_rect=[int(v[0, 0]) for v in out[1:]],
+         goldens=["integral", "lbp_rects", "lbp_rects_step2", "lbp_rects_step3"])
+    return batch, launches
+
+
+def phase_faces_timing(batch, card):
+    cascade = gt.load_frontalface()
+    plan = _grid_plan(cascade, FACES_H, FACES_W, *LADDER, FACES_STEP)
+    nwin = sum(ny * nx for *_, ny, nx in plan)
+    t_path = timeit(gt.detect_faces, batch, *faces_args(cascade))
+    t_ref = timeit(gt.detect_faces, batch, *faces_args(cascade), force_reference=True,
+                   iters=1, warmup=1, repeat=1)
+    emit("faces_timing", card=card, metric=FACES_METRIC, value=FACES_N * nwin / t_path,
+         unit="windows/sec/card", lbp_640x480_fps=FACES_N / t_path, frames=FACES_N,
+         windows_per_frame=nwin, scales=len(plan), ms_per_batch=t_path * 1e3,
+         plain_path_windows_per_sec=FACES_N * nwin / t_ref, plain_path_fps=FACES_N / t_ref,
+         plain_path_ms_per_batch=t_ref * 1e3,
+         windows="median of 3 windows of 20 calls (plain path: 1 call) after 2 warm-up calls "
+                 "(plain path: 1)")
+    ii = K.integral(batch)
+
+    def k5(evaluate):
+        return [evaluate(cascade, ii, scale, ny, nx, FACES_STEP) for scale, _, _, ny, nx in plan]
+
+    times = {
+        "integral": (timeit(K.integral, batch) * 1e3,
+                     timeit(K.integral_plain, batch, iters=3) * 1e3),
+        "lbp_eval_scale": (timeit(k5, K.lbp_eval_scale) * 1e3,
+                           timeit(k5, K.lbp_eval_scale_plain, iters=1, warmup=1, repeat=1) * 1e3),
+    }
+    for name, (ms, plain_ms) in times.items():
+        emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), ms=ms,
+             plain_ms=plain_ms, **({"summed_over_scales": len(plan)}
+                                   if name == "lbp_eval_scale" else {}))
+    emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -236,9 +419,14 @@ def main():
 
     chk = Checker()
     phase_kernels(chk, np.random.default_rng(0), dev)
-    batch, launches = phase_main_path(chk, dev)
+    phase_faces_kernels(chk, np.random.default_rng(1), dev)
+    batch, pre_launches = phase_main_path(chk, dev)
+    faces_batch, faces_launches = phase_faces_path(chk, dev)
     times = phase_timing(batch, card)
+    times.update(phase_faces_timing(faces_batch, card))
 
+    # each path ran with the counts at 0 and launches only its own kernels
+    launches = {name: pre_launches[name] + faces_launches[name] for name in KERNELS}
     summary = [{"name": name, **info, "launches": launches[name],
                 "max_abs_err": chk.max_err[name], "ms": times[name][0],
                 "plain_ms": times[name][1]} for name, info in KERNELS.items()]

@@ -7,16 +7,22 @@ tensor runs the port's kernels, a CPU tensor their plain versions.  There is no
 ``on_tpu`` gate; ``tensor.is_cuda`` chooses.
 
 Coordinates follow the reference: ``x`` is the column (fast axis), ``y`` the row.
+Sparse results are fixed-capacity tables with an explicit valid count, as in
+the JAX package: :class:`Rects` holds LBP detections.  :class:`LbpCascade` is the
+cascade's host-side numpy data, shared with the JAX package through
+:func:`lbp_cascade_from_arrays`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["Point", "Rect", "as_image", "is_batched"]
+__all__ = ["LbpCascade", "Point", "Rect", "Rects", "as_image", "is_batched",
+           "lbp_cascade_from_arrays"]
 
 
 class Rect(NamedTuple):
@@ -33,6 +39,100 @@ class Point(NamedTuple):
 
     x: Any
     y: Any
+
+
+class Rects(NamedTuple):
+    """Fixed-capacity rect table of LBP detections (grayskull.h:815-835).
+
+    Every field is a ``torch.int32`` tensor: ``n`` is the valid count (``()`` for
+    one frame, ``(N,)`` for a batch); ``x, y, w, h`` are ``(cap,)`` or
+    ``(N, cap)``, with rows past ``n`` set to 0.
+    """
+
+    n: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    w: torch.Tensor
+    h: torch.Tensor
+
+
+_CASCADE_FIELDS = {
+    "features": np.int8,
+    "weak_feature_idx": np.uint16,
+    "weak_left_val": np.float32,
+    "weak_right_val": np.float32,
+    "weak_subset_offset": np.uint16,
+    "weak_num_subsets": np.uint16,
+    "subsets": np.int32,
+    "stage_weak_start": np.uint16,
+    "stage_nweaks": np.uint16,
+    "stage_threshold": np.float32,
+}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LbpCascade:
+    """``gs_lbp_cascade`` (grayskull.h:54-64) as host-side numpy arrays.
+
+    The layout of ``grayskull_tpu.core.LbpCascade``:
+
+    * ``features``: (nfeatures, 4) int8 — x, y, w, h of the block grid's origin cell
+    * ``weak_feature_idx``: (nweaks,) uint16
+    * ``weak_left_val`` / ``weak_right_val``: (nweaks,) float32
+    * ``weak_subset_offset`` / ``weak_num_subsets``: (nweaks,) uint16
+    * ``subsets``: (total_subsets,) int32 bitmasks
+    * ``stage_weak_start`` / ``stage_nweaks``: (nstages,) uint16
+    * ``stage_threshold``: (nstages,) float32
+
+    Equality is identity, as in the JAX package: the per-scale tables that
+    ``ops.lbp`` uploads to the card are cached per cascade object, so callers
+    reuse one object (``cascade.load_frontalface`` is memoized).
+    """
+
+    window_w: int
+    window_h: int
+    features: np.ndarray
+    weak_feature_idx: np.ndarray
+    weak_left_val: np.ndarray
+    weak_right_val: np.ndarray
+    weak_subset_offset: np.ndarray
+    weak_num_subsets: np.ndarray
+    subsets: np.ndarray
+    stage_weak_start: np.ndarray
+    stage_nweaks: np.ndarray
+    stage_threshold: np.ndarray
+
+    @property
+    def nfeatures(self) -> int:
+        return len(self.features)
+
+    @property
+    def nweaks(self) -> int:
+        return len(self.weak_feature_idx)
+
+    @property
+    def nstages(self) -> int:
+        return len(self.stage_threshold)
+
+    def __hash__(self):
+        return hash((self.window_w, self.window_h, self.nfeatures, self.nweaks, self.nstages))
+
+    def __eq__(self, other):
+        return self is other
+
+
+def lbp_cascade_from_arrays(obj) -> LbpCascade:
+    """A port :class:`LbpCascade` from any object with the twelve cascade fields.
+
+    ``obj`` may be a ``grayskull_tpu.core.LbpCascade``, an ``np.load``-ed
+    ``.npz`` or a mapping; each field is copied to a numpy array of the
+    cascade's dtype.
+    """
+    def get(name):
+        return obj[name] if isinstance(obj, dict) or hasattr(obj, "files") else getattr(obj, name)
+
+    arrays = {name: np.array(get(name), dtype) for name, dtype in _CASCADE_FIELDS.items()}
+    return LbpCascade(window_w=int(get("window_w")), window_h=int(get("window_h")), **arrays)
 
 
 def as_image(x) -> torch.Tensor:

@@ -3,6 +3,9 @@
 * :mod:`.preproc` — K1 ``blur_hist`` (box blur + per-frame histogram) and
   K2 ``threshold_sobel`` (per-frame binarize + interior Sobel)
 * :mod:`.otsu` — K3 ``otsu`` (the bit-exact float32 Otsu sweep, a thread per frame)
+* :mod:`.integral` — K4 ``integral`` (uint32 2-D prefix sum: row scan, column scan)
+* :mod:`.lbp` — K5 ``lbp_eval_scale`` (one ladder scale of the LBP cascade, a
+  thread per window with early exit)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -10,8 +13,12 @@ version for a CPU tensor.  :func:`launch_counts` reads how often each kernel was
 launched; :func:`reset_launch_counts` sets every count to 0.
 """
 
+from . import integral as _integral_mod
+from . import lbp as _lbp_mod
 from . import otsu as _otsu_mod
 from . import preproc as _preproc_mod
+from .integral import integral, integral_plain  # noqa: F401
+from .lbp import lbp_eval_scale, lbp_eval_scale_plain  # noqa: F401
 from .otsu import otsu, otsu_plain  # noqa: F401
 from .preproc import (blur_hist, blur_hist_plain, frame_histograms,  # noqa: F401
                       sobel_plain, threshold_sobel, threshold_sobel_plain)
@@ -20,7 +27,11 @@ __all__ = [
     "blur_hist",
     "blur_hist_plain",
     "frame_histograms",
+    "integral",
+    "integral_plain",
     "launch_counts",
+    "lbp_eval_scale",
+    "lbp_eval_scale_plain",
     "otsu",
     "otsu_plain",
     "reset_launch_counts",
@@ -29,7 +40,8 @@ __all__ = [
     "threshold_sobel_plain",
 ]
 
-_COUNTERS = (_preproc_mod.launches, _otsu_mod.launches)
+_COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
+             _lbp_mod.launches)
 
 
 def launch_counts() -> dict:

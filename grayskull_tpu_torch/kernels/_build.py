@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Every ``grayskull_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, the first time a
-CUDA tensor reaches a kernel wrapper, and the library is loaded with
-:mod:`ctypes`.  Nothing is built or loaded at import, so the package imports on a
-machine with no GPU and no ``nvcc``.
+(``sm_90a``) into an object, one ``nvcc`` per source, all started together; the
+objects are linked into one shared library with a plain C interface.  That
+happens the first time a CUDA tensor reaches a kernel wrapper, and the library
+is loaded with :mod:`ctypes`.  Nothing is built or loaded at import, so the
+package imports on a machine with no GPU and no ``nvcc``.
 
 The library lands in ``grayskull_tpu_torch/_build/`` under a name keyed by a hash
 of the sources and flags, so an edited source is rebuilt and an unchanged one is
@@ -26,17 +27,15 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["NVCC_FLAGS", "build", "build_command", "check", "library", "sources", "stream_of"]
+__all__ = ["NVCC_FLAGS", "build", "check", "compile_command", "library", "link_command", "sources",
+           "stream_of"]
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -45,6 +44,8 @@ _SIGNATURES = {
     "gs_blur_hist": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "gs_threshold_sobel": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "gs_otsu": (_PTR, _PTR, _INT, _INT, _PTR),
+    "gs_integral": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "gs_lbp_eval_scale": (_PTR, _PTR, _PTR, *(_INT,) * 10, _PTR),
 }
 
 _lock = threading.Lock()
@@ -63,9 +64,14 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def build_command(srcs, out) -> list[str]:
-    """The ``nvcc`` command line that builds ``srcs`` into the library ``out``."""
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), *(str(s) for s in srcs)]
+def compile_command(src, obj) -> list[str]:
+    """The ``nvcc`` command line that compiles the source ``src`` into the object ``obj``."""
+    return [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs, out) -> list[str]:
+    """The ``nvcc`` command line that links the objects ``objs`` into the library ``out``."""
+    return [_nvcc(), *GENCODE, "-shared", "-o", str(out), *(str(o) for o in objs)]
 
 
 def _library_path(srcs) -> pathlib.Path:
@@ -76,6 +82,22 @@ def _library_path(srcs) -> pathlib.Path:
     return BUILD_DIR / f"libgs_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all, raise if one failed."""
+    try:  # every command runs the same nvcc: if it is missing, the first start fails
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+    except FileNotFoundError as e:
+        raise RuntimeError(f"cannot build the CUDA kernels: {cmds[0][0]} not found") from e
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> pathlib.Path:
     """Compile the sources unless a library built from them exists; return its path."""
     srcs = sources()
@@ -83,21 +105,15 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        cmd = build_command(srcs, tmp)
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except FileNotFoundError as e:
-            raise RuntimeError(f"cannot build the CUDA kernels: {cmd[0]} not found") from e
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        objs = [work / f"{src.stem}.o" for src in srcs]
+        _run_all([compile_command(src, obj) for src, obj in zip(srcs, objs)])
+        lib = work / out.name
+        _run_all([link_command(objs, lib)])
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -5,8 +5,8 @@ JAX, so it also runs where only PyTorch is installed::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Every output is an integer and the Otsu sweep is bit-exact, so the tolerance
-is 0.
+Every output is an integer or a bool and the Otsu sweep is bit-exact, so the
+tolerance is 0.
 """
 
 import numpy as np
@@ -15,6 +15,8 @@ import torch
 
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
+from grayskull_tpu_torch.core import LbpCascade
+from grayskull_tpu_torch.ops.lbp import _grid_plan
 
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
 
@@ -44,6 +46,25 @@ def otsu_edge_histograms():
     big[[3, 200]] = [1 << 24 | 1, 5]  # counts past float32's exact integers
     cases["big_counts"] = big
     return [(k, v, int(v.sum())) for k, v in cases.items()]
+
+
+def synthetic_cascade():
+    """``tests/test_lbp.py``'s 8x8 cascade: 3 features, 4 weaks, a back-loaded stage split."""
+    rng = np.random.default_rng(5)
+    nweaks = 4
+    return LbpCascade(
+        window_w=8, window_h=8,
+        features=np.array([[0, 0, 2, 2], [1, 1, 2, 2], [2, 0, 1, 2]], np.int8),
+        weak_feature_idx=np.array([0, 2, 1, 0], np.uint16),
+        weak_left_val=rng.uniform(-1, 0, nweaks).astype(np.float32),
+        weak_right_val=rng.uniform(0, 1, nweaks).astype(np.float32),
+        weak_subset_offset=np.arange(0, 8 * nweaks, 8, dtype=np.uint16),
+        weak_num_subsets=np.full(nweaks, 8, np.uint16),
+        subsets=rng.integers(-2**31, 2**31, 8 * nweaks, dtype=np.int64).astype(np.int32),
+        stage_weak_start=np.array([0, 1], np.uint16),
+        stage_nweaks=np.array([1, 3], np.uint16),
+        stage_threshold=np.array([-0.2, 0.1], np.float32),
+    )
 
 
 @pytest.fixture()
@@ -92,7 +113,8 @@ def test_preprocess_launches_every_kernel_on_card(cuda_device):
     K.reset_launch_counts()
     out = gt.preprocess(imgs)
     counts = K.launch_counts()
-    assert counts == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 1}
+    assert counts == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 1, "integral": 0,
+                      "lbp_eval_scale": 0}
     ref = gt.preprocess(imgs, force_reference=True)
     assert K.launch_counts() == counts
     for a, b in zip(out, ref):
@@ -109,3 +131,80 @@ def test_wrappers_raise_on_card(cuda_device):
         K.threshold_sobel(imgs, torch.zeros(2, dtype=torch.uint8))  # thresholds on the CPU
     with pytest.raises(ValueError):
         K.blur_hist(imgs[:, :, ::2], 1)
+
+
+def _bits(ii):
+    return ii.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 17, 129),
+                                   (4, 480, 640)])
+def test_integral_matches_plain_on_card(cuda_device, shape):
+    imgs = _frames(shape, 30, cuda_device)
+    got = K.integral(imgs)
+    assert got.dtype == torch.uint32 and got.is_cuda
+    assert torch.equal(_bits(got), _bits(K.integral_plain(imgs)))
+
+
+@pytest.mark.cuda
+def test_integral_wraps_on_card(cuda_device):
+    imgs = torch.full((1, 4200, 4200), 255, dtype=torch.uint8, device=cuda_device)
+    got = K.integral(imgs)
+    assert torch.equal(_bits(got), _bits(K.integral_plain(imgs)))
+    assert int(_bits(got)[0, -1, -1]) % 2**32 == (255 * 4200 * 4200) % 2**32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 2, 3])
+def test_lbp_eval_scale_matches_plain_on_card(cuda_device, step):
+    cas = gt.load_frontalface()
+    ii = K.integral(_frames((2, 90, 130), 31, cuda_device))
+    for scale, _, _, ny, nx in _grid_plan(cas, 90, 130, 1.2, 1.0, 4.0, step):
+        got = K.lbp_eval_scale(cas, ii, scale, ny, nx, step)
+        assert got.dtype == torch.bool and got.is_cuda
+        assert torch.equal(got, K.lbp_eval_scale_plain(cas, ii, scale, ny, nx, step)), scale
+    for origin in ((0, 0), (33, 70), (66, 106)):
+        assert torch.equal(K.lbp_eval_scale(cas, ii, 1.0, 1, 1, 1, origin),
+                           K.lbp_eval_scale_plain(cas, ii, 1.0, 1, 1, 1, origin)), origin
+    syn = synthetic_cascade()
+    sii = K.integral(_frames((2, 40, 256), 32, cuda_device))
+    for scale in (1.0, 1.5):
+        win = int(np.float32(8) * np.float32(scale))
+        ny, nx = (40 - win) // step + 1, (256 - win) // step + 1
+        assert torch.equal(K.lbp_eval_scale(syn, sii, scale, ny, nx, step),
+                           K.lbp_eval_scale_plain(syn, sii, scale, ny, nx, step)), scale
+
+
+@pytest.mark.cuda
+def test_detect_faces_launches_its_kernels_on_card(cuda_device):
+    lena = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/lena.pgm")
+    frames = torch.from_numpy(np.stack([lena, lena[:, ::-1].copy()])).to(cuda_device)
+    K.reset_launch_counts()
+    out = gt.detect_faces(frames, step=2)
+    nscales = len(_grid_plan(gt.load_frontalface(), 128, 128, 1.2, 1.0, 4.0, 2))
+    assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0,
+                                 "integral": 1, "lbp_eval_scale": nscales}
+    ref = gt.detect_faces(frames, step=2, force_reference=True)
+    assert K.launch_counts()["lbp_eval_scale"] == nscales
+    on_cpu = gt.detect_faces(frames.cpu(), step=2)
+    for a, b, c in zip(out, ref, on_cpu):
+        assert a.is_cuda and torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert out.n.tolist()[0] == 7  # lena at step 2
+    window = gt.lbp_window(gt.load_frontalface(), gt.integral(frames[0]), 65, 57, 1.2)
+    assert window.is_cuda and K.launch_counts()["lbp_eval_scale"] == nscales + 1
+
+
+@pytest.mark.cuda
+def test_faces_wrappers_raise_on_card(cuda_device):
+    imgs = _frames((2, 30, 30), 33, cuda_device)
+    with pytest.raises(ValueError):
+        K.integral(imgs[:, :, ::2])
+    with pytest.raises(TypeError):
+        K.integral(imgs.to(torch.int32))
+    ii = K.integral(imgs)
+    cas = gt.load_frontalface()
+    with pytest.raises(ValueError):
+        K.lbp_eval_scale(cas, ii[:, :, ::2], 1.0, 1, 1)
+    with pytest.raises(TypeError):
+        K.lbp_eval_scale(cas, ii.view(torch.int32), 1.0, 1, 1)

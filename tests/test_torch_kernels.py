@@ -4,19 +4,31 @@ On the CPU a kernel wrapper runs its plain version; here those plain versions
 are held, with tolerance 0, to the Pallas kernels run in interpret mode the way
 ``tests/test_preproc.py`` runs them, and to the XLA Otsu sweep.  The CUDA kernels
 themselves are held to the plain versions on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  The LBP cascade's plain
+version is also held to the XLA window evaluation ``_eval_windows_jit``.
 """
+
+import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import grayskull_tpu as gs
+import grayskull_tpu_torch as gt
+from grayskull_tpu.core import LbpCascade as JaxLbpCascade
+from grayskull_tpu.kernels.integral import integral_pallas
+from grayskull_tpu.kernels.lbp import lbp_eval_scale as jax_lbp_eval_scale
+from grayskull_tpu.kernels.lbp import lbp_pad_for
 from grayskull_tpu.kernels.preproc import (blur_pallas, fused_blur_hist,
                                            fused_threshold_sobel, sobel_pallas)
 from grayskull_tpu.ops.histogram import otsu_from_histogram as jax_otsu_from_histogram
+from grayskull_tpu.ops.lbp import _eval_windows_jit
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
-from tests.test_torch_cuda import otsu_edge_histograms
+from grayskull_tpu_torch.kernels.lbp import scale_tables
+from tests.test_torch_cuda import otsu_edge_histograms, synthetic_cascade
 
 STENCIL_SHAPES = [(1, 13, 136), (1, 97, 200), (1, 7, 8), (1, 17, 129)]
 
@@ -89,8 +101,87 @@ def test_plain_runs_on_cpu_without_counting():
     imgs = torch.from_numpy(_frames((1, 9, 10), 15))
     _, hist = K.blur_hist(imgs, 1)
     K.threshold_sobel(imgs, K.otsu(hist, 90))
+    ii = K.integral(imgs)
+    K.lbp_eval_scale(synthetic_cascade(), ii, 1.0, 1, 2, 1)
     assert K.launch_counts() == before
-    assert set(before) == {"blur_hist", "threshold_sobel", "otsu"}
+    assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale"}
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
+def test_integral_vs_integral_pallas(shape):
+    imgs = _frames(shape, 40)
+    got = K.integral(torch.from_numpy(imgs))
+    assert got.dtype == torch.uint32
+    _eq(got, integral_pallas(imgs, interpret=True), str(shape))
+
+
+def _jax_cascade(cascade):
+    return JaxLbpCascade(**{f.name: getattr(cascade, f.name)
+                            for f in dataclasses.fields(cascade)})
+
+
+@pytest.mark.parametrize("step", [1, 2])
+@pytest.mark.parametrize("scale", [1.0, 1.5])
+def test_lbp_eval_scale_plain_vs_jax_synthetic(scale, step):
+    """``tests/test_lbp.py``'s synthetic cascade, which has a back-loaded stage split."""
+    cas = synthetic_cascade()
+    jcas = _jax_cascade(cas)
+    ih, iw = 40, 256
+    frames = _frames((2, ih, iw), 41)
+    iib = gs.integral(frames)
+    win = int(np.float32(8) * np.float32(scale))
+    ny, nx = (ih - win) // step + 1, (iw - win) // step + 1
+    got = K.lbp_eval_scale(cas, gt.integral(frames), scale, ny, nx, step)
+    assert got.dtype == torch.bool and tuple(got.shape) == (2, ny, nx)
+    _eq(got, _eval_windows_jit(jcas, iib, scale, ny, nx, step), "vs _eval_windows")
+    iip = lbp_pad_for(jcas, iib, [(scale, win, win)], ih, iw, step)
+    _eq(got, jax_lbp_eval_scale(jcas, iip, scale, ny, nx, step, interpret=True), "vs pallas")
+
+
+@pytest.mark.parametrize("step", [1, 2, 3])
+def test_lbp_eval_scale_plain_vs_jax_frontalface(step):
+    lena = gt.io.read_pgm(os.path.join(os.path.dirname(__file__), "golden", "testdata",
+                                       "lena.pgm"))
+    cas = gt.load_frontalface()
+    jcas = _jax_cascade(cas)
+    ii = gt.integral(lena[None])
+    iib = gs.integral(lena[None])
+    for scale, win_w, win_h in gt.scale_ladder(cas, 128, 128, 1.2, 1.0, 4.0)[::4]:
+        ny, nx = (128 - win_h) // step + 1, (128 - win_w) // step + 1
+        _eq(K.lbp_eval_scale(cas, ii, scale, ny, nx, step),
+            _eval_windows_jit(jcas, iib, scale, ny, nx, step), f"scale {scale}")
+    for y, x in ((57, 65), (104, 104)):  # one window from an origin
+        _eq(K.lbp_eval_scale(cas, ii, 1.0, 1, 1, 1, (y, x)),
+            _eval_windows_jit(jcas, iib, 1.0, 1, 1, 1, origin=(y, x)), f"window {(y, x)}")
+
+
+def test_faces_wrappers_reject_bad_input():
+    good = torch.zeros((2, 8, 8), dtype=torch.uint8)
+    for bad, err in ((good.to(torch.int32), TypeError), (good[0], ValueError),
+                     (good[:, :, ::2], ValueError), (good[:, :0], ValueError)):
+        with pytest.raises(err):
+            K.integral(bad)
+    ii = K.integral(good)
+    cas = synthetic_cascade()
+    for bad, err in ((ii.view(torch.int32), TypeError), (ii[0], ValueError),
+                     (ii[:, :, ::2], ValueError)):
+        with pytest.raises(err):
+            K.lbp_eval_scale(cas, bad, 1.0, 1, 1)
+    for ny, nx, step, origin in ((0, 1, 1, (0, 0)), (1, 1, 0, (0, 0)), (1, 1, 1, (-1, 0))):
+        with pytest.raises(ValueError):
+            K.lbp_eval_scale(cas, ii, 1.0, ny, nx, step, origin)
+    empty_stage = dataclasses.replace(cas, stage_nweaks=np.array([0, 4], np.uint16))
+    with pytest.raises(ValueError):
+        K.lbp_eval_scale(empty_stage, ii, 1.0, 1, 1)
+    nweaks = 3300  # past the 48 KB of tables the kernel keeps in shared memory
+    huge = dataclasses.replace(
+        cas, weak_feature_idx=np.zeros(nweaks, np.uint16),
+        weak_left_val=np.zeros(nweaks, np.float32), weak_right_val=np.zeros(nweaks, np.float32),
+        weak_subset_offset=np.zeros(nweaks, np.uint16), weak_num_subsets=np.ones(nweaks, np.uint16),
+        stage_weak_start=np.array([0], np.uint16), stage_nweaks=np.array([nweaks], np.uint16),
+        stage_threshold=np.zeros(1, np.float32))
+    with pytest.raises(ValueError):
+        scale_tables(huge, 1.0)
 
 
 def test_wrappers_reject_bad_input():
@@ -122,15 +213,31 @@ def test_wrappers_reject_bad_input():
 
 def test_build_command_targets_hopper_without_fma(tmp_path):
     srcs = _build.sources()
-    assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu"}
-    cmd = _build.build_command(srcs, tmp_path / "lib.so")
-    assert cmd[0].endswith("nvcc")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
-    assert "--use_fast_math" not in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    assert cmd[cmd.index("-o") + 1] == str(tmp_path / "lib.so")
-    assert [c for c in cmd if c.endswith(".cu")] == [str(s) for s in srcs]
+    assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu"}
+    for src in srcs:  # one nvcc per source, started together
+        cmd = _build.compile_command(src, tmp_path / f"{src.stem}.o")
+        assert cmd[0].endswith("nvcc")
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
+        assert "--use_fast_math" not in cmd
+        assert {"-c", "-O3", "-std=c++17", "-fPIC"} <= set(cmd)
+        assert cmd[cmd.index("-o") + 1] == str(tmp_path / f"{src.stem}.o")
+        assert [c for c in cmd if c.endswith(".cu")] == [str(src)]
+    objs = [tmp_path / f"{src.stem}.o" for src in srcs]
+    link = _build.link_command(objs, tmp_path / "lib.so")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
+    assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
+    assert link[-len(objs):] == [str(o) for o in objs]
     # the library name is keyed by the sources: a new hash means a rebuild
     assert _build._library_path(srcs).name.startswith("libgs_kernels_")
     assert _build._library_path(srcs) == _build._library_path(srcs)
     assert _build._library_path(srcs[:1]) != _build._library_path(srcs)
+    assert set(_build._SIGNATURES) == {"gs_blur_hist", "gs_threshold_sobel", "gs_otsu",
+                                       "gs_integral", "gs_lbp_eval_scale"}
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-such-nvcc"))
+    with pytest.raises(RuntimeError, match="not found"):
+        _build.build()
+    assert not list((tmp_path / "build").iterdir())  # the work directory is removed
