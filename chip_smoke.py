@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
 It builds the port's CUDA kernels from ``grayskull_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel bit for bit to its plain PyTorch version on the
-card, and drives the port's two paths, each with the launch counts set to 0
-just before it and read just after:
+card, and drives the port's three paths, each entry point with the launch
+counts set to 0 just before it and read just after:
 
 * preprocess (``grayskull_tpu_torch.preprocess``: blur(2) -> Otsu -> threshold
   -> Sobel on 256 frames of 1024x1024), checked against the plain path and the
@@ -17,9 +17,15 @@ just before it and read just after:
   the full scale ladder -> the first 100 rects per frame, on 32 frames of
   640x480 at step 1), checked against the plain path on the card (every
   ladder scale's hit mask of the 32 frames, and the rect tables) and, for two
-  frames, on the CPU.
+  frames, on the CPU;
+* ORB (``grayskull_tpu_torch.orb_extract(frames, 500, 20)`` on 16 frames of
+  640x480; ``grayskull_tpu_torch.track`` on the aruco template and scene with
+  2,500 keypoints; and the same-shape pair of aruco and aruco rolled 9
+  columns through ``orb_extract`` + ``match_orb``), checked against the plain
+  path on the card, in the ``exact_host`` trig mode against the plain path on
+  the CPU, and against the FAST and matching goldens.
 
-Then it times both with CUDA events.  Each phase prints one JSON line; then
+Then it times all three with CUDA events.  Each phase prints one JSON line; then
 come the per-kernel summary line and the card's ``nvidia-smi`` name and power
 limit, and the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises and the exit code is non-zero; without a CUDA device it exits 1 and
@@ -37,6 +43,7 @@ import torch
 
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
+from grayskull_tpu_torch import libm32
 from grayskull_tpu_torch.io import read_pgm
 from grayskull_tpu_torch.core import LbpCascade
 from grayskull_tpu_torch.kernels import _build
@@ -67,10 +74,22 @@ KERNELS = {
                  "replaces": "grayskull_tpu/kernels/integral.py:111"},
     "lbp_eval_scale": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/lbp.cu",
                        "replaces": "grayskull_tpu/kernels/lbp.py:396"},
+    "fast": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/fast.cu",
+             "replaces": "grayskull_tpu/kernels/fast.py:207"},
+    "orb_moments": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/patches.cu",
+                    "replaces": "grayskull_tpu/kernels/patches.py:99"},
+    "orb_brief": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/patches.cu",
+                  "replaces": "grayskull_tpu/kernels/patches.py:99"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
 FACES_KERNELS = ("integral", "lbp_eval_scale")
+ORB_KERNELS = ("fast", "orb_moments", "orb_brief")
+ORB_N, ORB_H, ORB_W, ORB_CAP, ORB_THR = 16, 480, 640, 500, 20
+TRACK_KPS, PAIR_CAP, PAIR_DIST = 2500, 500, 64
+FAST_SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (16, 480, 640),
+               (1, 2900, 2900)]  # the last is past 2^23 pixels: int64 keys
+FAST_THRESHOLDS = (0, 5, 20, 60, 200)
 
 
 def emit(phase, **kv):
@@ -405,6 +424,236 @@ def phase_faces_timing(batch, card):
     return times
 
 
+def _aruco():
+    frame = read_pgm(os.path.join(HERE, "tests", "golden", "testdata", "aruco.pgm"))
+    if frame is None:
+        raise FileNotFoundError("tests/golden/testdata/aruco.pgm")
+    return frame.copy()  # writable, for torch.from_numpy
+
+
+def fast_frames(shape, rng):
+    """(name, frames): random bytes, tiled lena, a period-2 checkerboard (every
+    corner ties) and a dark frame (p < thr: C's unsigned p - thr wraps)."""
+    n, h, w = shape
+    checker = (np.indices((h, w)).sum(0) % 2 * 255).astype(np.uint8)
+    return [("random", rng.integers(0, 256, shape, dtype=np.uint8)),
+            ("lena", lena_batch(n, h, w, roll=5)),
+            ("checker", np.broadcast_to(checker, shape).copy()),
+            ("dark", rng.integers(0, 4, shape, dtype=np.uint8))]
+
+
+def keypoint_cases(rng, h, w, k_random):
+    """(N=2, K) int32 coordinates: tests/test_features.py's edge and corner
+    keypoints, some outside the frame, then random ones; the second frame's in reverse."""
+    edge = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (w // 2, 0), (0, h // 2),
+            (w - 1, h // 2), (w // 2, h - 1), (19, 19), (20, 20), (w - 20, h - 20),
+            (-30, -25), (-10, 40), (w + 4, h + 30), (w + 60, -1), (5, h + 2)]
+    xs = np.array([p[0] for p in edge] + rng.integers(0, w, k_random).tolist(), np.int32)
+    ys = np.array([p[1] for p in edge] + rng.integers(0, h, k_random).tolist(), np.int32)
+    return np.stack([xs, xs[::-1]]), np.stack([ys, ys[::-1]])
+
+
+def phase_orb_kernels(chk, rng, dev):
+    for shape in FAST_SHAPES:
+        for name, frames in fast_frames(shape, rng):
+            imgs = torch.from_numpy(frames).to(dev)
+            for thr in FAST_THRESHOLDS:
+                got, ref = K.fast(imgs, thr, True), K.fast_plain(imgs, thr, True)
+                chk.same("fast", got[0], ref[0], f"{shape} {name} thr={thr} score")
+                chk.same("fast", got[1], ref[1], f"{shape} {name} thr={thr} key")
+            chk.same("fast", K.fast(imgs, 20)[1], K.fast_plain(imgs, 20)[1],
+                     f"{shape} {name} key only")
+            torch.cuda.synchronize()
+    wide = K.fast(imgs, 0)[1]  # the last shape's dark frame
+    if wide.dtype != torch.int64:
+        raise AssertionError(f"fast on {FAST_SHAPES[-1]}: keys are {wide.dtype}, not int64")
+
+    h, w = 64, 200
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8)).to(dev)
+    xs, ys = (torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+              for c in keypoint_cases(rng, h, w, 112))
+    k = xs.shape[1]
+    special = np.float32([0.0, np.pi, -np.pi, np.float32(np.pi), -np.float32(np.pi),
+                          np.pi / 2, -np.pi / 2])
+    angles = np.concatenate([special, rng.uniform(-np.pi, np.pi, k - len(special))])
+    angles = torch.from_numpy(np.stack([angles, angles[::-1]]).astype(np.float32)).to(dev)
+    sin, cos = libm32.sinf(angles), libm32.cosf_like_reference(angles)
+    for r in (15, 0, 7, 20):
+        for a, b, what in zip(K.orb_moments(imgs, xs, ys, r), K.orb_moments_plain(imgs, xs, ys, r),
+                              ("m01", "m10")):
+            chk.same("orb_moments", a, b, f"edge keypoints r={r} {what}")
+    chk.same("orb_brief", K.orb_brief(imgs, xs, ys, sin, cos),
+             K.orb_brief_plain(imgs, xs, ys, sin, cos), "edge keypoints")
+    # the main path's shapes: 16 frames of 640x480, their 500 keypoints and real angles
+    batch = torch.from_numpy(lena_batch(ORB_N, ORB_H, ORB_W, roll=5)).to(dev)
+    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
+    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
+    for a, b, what in zip(K.orb_moments(batch, sx, sy), K.orb_moments_plain(batch, sx, sy),
+                          ("m01", "m10")):
+        chk.same("orb_moments", a, b, f"16x640x480 {what}")
+    sin, cos = libm32.sinf(kps.angle), libm32.cosf_like_reference(kps.angle)
+    chk.same("orb_brief", K.orb_brief(batch, sx, sy, sin, cos),
+             K.orb_brief_plain(batch, sx, sy, sin, cos), "16x640x480")
+    torch.cuda.synchronize()
+    emit("orb_kernels_vs_plain", ok=True, fast_shapes=[list(s) for s in FAST_SHAPES],
+         thresholds=list(FAST_THRESHOLDS), frames=["random", "lena", "checker", "dark"],
+         wide_key_keypoints=int((wide != 0).sum()),
+         checks={k: chk.checks[k] for k in ORB_KERNELS},
+         max_abs_err={k: chk.max_err[k] for k in ORB_KERNELS})
+
+
+def track_pair(a, b):
+    """``benchmarks/bench_all.py:191-212``: one batch-2 ``orb_extract``, then ``match_orb``."""
+    ks = gt.orb_extract(torch.stack([a, b]), ORB_CAP, ORB_THR)
+    k1, k2 = (gt.Keypoints(*(v[i] for v in ks)) for i in (0, 1))
+    return k1, k2, gt.match_orb(k1, k2, PAIR_CAP, PAIR_DIST)
+
+
+def _table_bits(table):
+    """A table's fields, the float32 angle as its int32 bits."""
+    return [v.view(torch.int32) if v.dtype == torch.float32 else v for v in table]
+
+
+def _same_tables(chk, got, ref, what):
+    owner = {"angle": "orb_moments", "descriptor": "orb_brief"}
+    for name, a, b in zip(got._fields, _table_bits(got), _table_bits(ref)):
+        chk.same(owner.get(name, "fast"), a, b, f"{what} {name}")
+
+
+def _equal_on_cpu(got, ref, what):
+    for name, a, b in zip(got._fields, _table_bits(got), _table_bits(ref)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{what} {name}: card differs from the plain path on the CPU")
+
+
+def _launched(fn, *args):
+    """``fn(*args)`` with the counts reset just before and read just after, and
+    PyTorch's sync debug mode raising on any host sync inside it."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    missing = [name for name in ORB_KERNELS if launches.get(name, 0) < 1]
+    if missing:
+        raise AssertionError(f"{fn.__name__} did not launch {missing}: {launches}")
+    return out, launches
+
+
+def phase_orb_path(chk, dev):
+    batch = torch.from_numpy(lena_batch(ORB_N, ORB_H, ORB_W, roll=5)).to(dev)
+    aruco = _aruco()
+    scene = torch.from_numpy(aruco).to(dev)
+    tmpl = torch.from_numpy(aruco[100:350, 150:450].copy()).to(dev)
+    shifted = torch.from_numpy(np.roll(aruco, 9, axis=1)).to(dev)
+    kps, l_extract = _launched(gt.orb_extract, batch, ORB_CAP, ORB_THR)
+    tracked, l_track = _launched(gt.track, tmpl, scene, TRACK_KPS)
+    paired, l_pair = _launched(track_pair, scene, shifted)
+    launches = {name: l_extract[name] + l_track[name] + l_pair[name] for name in KERNELS}
+
+    _same_tables(chk, kps, gt.orb_extract(batch, ORB_CAP, ORB_THR, force_reference=True),
+                 "orb_extract 16 frames")
+    for got, ref, what in zip(tracked, gt.track(tmpl, scene, TRACK_KPS, force_reference=True),
+                              ("template", "scene", "matches")):
+        _same_tables(chk, got, ref, f"track {what}")
+    ref_pair = gt.orb_extract(torch.stack([scene, shifted]), ORB_CAP, ORB_THR,
+                              force_reference=True)
+    _same_tables(chk, paired[0], gt.Keypoints(*(v[0] for v in ref_pair)), "pair frame 0")
+    _same_tables(chk, paired[1], gt.Keypoints(*(v[1] for v in ref_pair)), "pair frame 1")
+    n = kps.n.tolist()
+    if tuple(kps.descriptor.shape) != (ORB_N, ORB_CAP, 8) or min(n) < 1:
+        raise AssertionError(f"orb_extract: shapes {tuple(kps.descriptor.shape)}, counts {n}")
+    if int(paired[2].n) >= PAIR_CAP or int(tracked[2].n) < 1:
+        raise AssertionError("track: the match table saturated or is empty")
+
+    rows = [0, ORB_N - 1]
+    # fast trig: CUDA's float64 atan2 is not glibc's, so angles may differ; information only
+    on_cpu = gt.orb_extract(batch[rows].cpu(), ORB_CAP, ORB_THR)
+    fast_mode_angle_diffs = int((kps.angle[rows].cpu().view(torch.int32)
+                                 != on_cpu.angle.view(torch.int32)).sum())
+    libm32.use_exact_host_libm(True)
+    try:
+        _equal_on_cpu(gt.orb_extract(batch[rows], ORB_CAP, ORB_THR),
+                      gt.orb_extract(batch[rows].cpu(), ORB_CAP, ORB_THR), "exact_host orb_extract")
+        for got, ref, what in zip(gt.track(tmpl, scene, TRACK_KPS),
+                                  gt.track(tmpl.cpu(), scene.cpu(), TRACK_KPS),
+                                  ("template", "scene", "matches")):
+            _equal_on_cpu(got, ref, f"exact_host track {what}")
+    finally:
+        libm32.use_exact_host_libm(False)
+
+    g = np.load(os.path.join(HERE, "tests", "golden", "goldens.npz"))
+    fk, score = gt.fast(torch.from_numpy(g["input"]).to(dev), 500, 15)
+    nf = int(fk.n)
+    xy = torch.stack([fk.x[:nf], fk.y[:nf]], 1).cpu().numpy()
+    if (not np.array_equal(score.cpu().numpy(), g["fast_scoremap"])
+            or not np.array_equal(xy, g["fast_xy"].astype(np.int64))
+            or not np.array_equal(fk.response[:nf].cpu().numpy(), g["fast_response"].astype(np.int64))):
+        raise AssertionError("golden fast_* differs on the card")
+
+    def table(desc):
+        d = torch.from_numpy(desc.astype(np.uint32)).to(dev)
+        z = torch.zeros(len(desc), dtype=torch.int32, device=dev)
+        return gt.Keypoints(torch.tensor(len(desc), dtype=torch.int32, device=dev), z, z, z,
+                            z.to(torch.float32), d)
+
+    for key, md in (("match_orb_64", 64.0), ("match_orb_200", 200.0)):
+        m = gt.match_orb(table(g["match_d1"]), table(g["match_d2"]), 100, md)
+        nm = int(m.n)
+        got = torch.stack([m.idx1[:nm], m.idx2[:nm], m.distance[:nm]], 1).cpu().numpy()
+        if not np.array_equal(got, g[key].astype(np.int64)):
+            raise AssertionError(f"golden {key} differs on the card")
+    emit("orb_path", ok=True, frames=ORB_N, height=ORB_H, width=ORB_W, max_kps=ORB_CAP,
+         threshold=ORB_THR, launches=launches, launches_orb_extract=l_extract,
+         launches_track=l_track, launches_track_pair=l_pair, keypoints=n,
+         track_keypoints=[int(tracked[0].n), int(tracked[1].n)], track_matches=int(tracked[2].n),
+         pair_keypoints=[int(paired[0].n), int(paired[1].n)], pair_matches=int(paired[2].n),
+         fast_mode_angles_card_vs_cpu_differ=fast_mode_angle_diffs,
+         fast_mode_angles_compared=int(kps.n[rows].sum()),
+         exact_host_vs_cpu=["orb_extract frames 0 and 15", "track aruco"],
+         goldens=["fast_scoremap", "fast_xy", "fast_response", "match_orb_64", "match_orb_200"])
+    return (batch, tmpl, scene, shifted), launches
+
+
+def phase_orb_timing(frames, card):
+    batch, tmpl, scene, shifted = frames
+    keypoints = int(gt.orb_extract(batch, ORB_CAP, ORB_THR).n.sum())
+    t_path = timeit(gt.orb_extract, batch, ORB_CAP, ORB_THR)
+    t_ref = timeit(gt.orb_extract, batch, ORB_CAP, ORB_THR, force_reference=True, iters=3)
+    t_pair = timeit(track_pair, scene, shifted)
+    t_track = timeit(gt.track, tmpl, scene, TRACK_KPS)
+    t_track_ref = timeit(gt.track, tmpl, scene, TRACK_KPS, force_reference=True, iters=3)
+    emit("orb_timing", card=card, metric="orb_keypoints_per_sec", value=keypoints / t_path,
+         unit="keypoints/sec/card", keypoints_per_call=keypoints, frames=ORB_N,
+         ms_per_batch=t_path * 1e3, plain_path_keypoints_per_sec=keypoints / t_ref,
+         plain_path_ms_per_batch=t_ref * 1e3, orb_track_pair_fps=1 / t_pair,
+         track_pair_ms=t_pair * 1e3, track_aruco_ms=t_track * 1e3,
+         plain_track_aruco_ms=t_track_ref * 1e3,
+         windows="median of 3 windows of 20 calls (plain path: 3 calls) after 2 warm-up calls")
+    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
+    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
+    sin, cos = libm32.sinf(kps.angle), libm32.cosf_like_reference(kps.angle)
+    pairs = {
+        "fast": (lambda: K.fast(batch, ORB_THR), lambda: K.fast_plain(batch, ORB_THR)),
+        "orb_moments": (lambda: K.orb_moments(batch, sx, sy),
+                        lambda: K.orb_moments_plain(batch, sx, sy)),
+        "orb_brief": (lambda: K.orb_brief(batch, sx, sy, sin, cos),
+                      lambda: K.orb_brief_plain(batch, sx, sy, sin, cos)),
+    }
+    times = {}
+    for name, (kernel, plain) in pairs.items():
+        times[name] = (timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3)
+        emit("kernel_time", card=card, kernel=name,
+             shape=list(batch.shape) if name == "fast" else [ORB_N, ORB_CAP],
+             ms=times[name][0], plain_ms=times[name][1])
+    emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -420,13 +669,17 @@ def main():
     chk = Checker()
     phase_kernels(chk, np.random.default_rng(0), dev)
     phase_faces_kernels(chk, np.random.default_rng(1), dev)
+    phase_orb_kernels(chk, np.random.default_rng(2), dev)
     batch, pre_launches = phase_main_path(chk, dev)
     faces_batch, faces_launches = phase_faces_path(chk, dev)
+    orb_frames, orb_launches = phase_orb_path(chk, dev)
     times = phase_timing(batch, card)
     times.update(phase_faces_timing(faces_batch, card))
+    times.update(phase_orb_timing(orb_frames, card))
 
     # each path ran with the counts at 0 and launches only its own kernels
-    launches = {name: pre_launches[name] + faces_launches[name] for name in KERNELS}
+    launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]
+                for name in KERNELS}
     summary = [{"name": name, **info, "launches": launches[name],
                 "max_abs_err": chk.max_err[name], "ms": times[name][0],
                 "plain_ms": times[name][1]} for name, info in KERNELS.items()]

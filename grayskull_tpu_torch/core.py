@@ -8,9 +8,11 @@ tensor runs the port's kernels, a CPU tensor their plain versions.  There is no
 
 Coordinates follow the reference: ``x`` is the column (fast axis), ``y`` the row.
 Sparse results are fixed-capacity tables with an explicit valid count, as in
-the JAX package: :class:`Rects` holds LBP detections.  :class:`LbpCascade` is the
+the JAX package: :class:`Rects` holds LBP detections, :class:`Keypoints` ORB
+keypoints and :class:`Matches` descriptor matches.  :class:`LbpCascade` is the
 cascade's host-side numpy data, shared with the JAX package through
-:func:`lbp_cascade_from_arrays`.
+:func:`lbp_cascade_from_arrays`; :func:`keypoints_from_arrays` takes a keypoint
+table across the same way.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["LbpCascade", "Point", "Rect", "Rects", "as_image", "is_batched",
-           "lbp_cascade_from_arrays"]
+__all__ = ["Keypoints", "LbpCascade", "Matches", "Point", "Rect", "Rects", "as_image",
+           "is_batched", "keypoints_from_arrays", "lbp_cascade_from_arrays"]
 
 
 class Rect(NamedTuple):
@@ -54,6 +56,49 @@ class Rects(NamedTuple):
     y: torch.Tensor
     w: torch.Tensor
     h: torch.Tensor
+
+
+class Keypoints(NamedTuple):
+    """Fixed-capacity keypoint table — ``gs_keypoint[]`` (grayskull.h:42-47).
+
+    ``n`` is the int32 valid count (``()`` for one frame, ``(N,)`` for a batch);
+    ``x``, ``y`` and ``response`` are int32 and ``angle`` float32, each ``(cap,)``
+    or ``(N, cap)``; ``descriptor`` is ``torch.uint32`` of shape ``(cap, 8)`` or
+    ``(N, cap, 8)``.  Rows past ``n`` are 0.
+    """
+
+    n: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    response: torch.Tensor
+    angle: torch.Tensor
+    descriptor: torch.Tensor
+
+
+class Matches(NamedTuple):
+    """Fixed-capacity match table — ``gs_match[]`` (grayskull.h:49-52), every field int32."""
+
+    n: torch.Tensor
+    idx1: torch.Tensor
+    idx2: torch.Tensor
+    distance: torch.Tensor
+
+
+_KEYPOINT_DTYPES = {"n": np.int32, "x": np.int32, "y": np.int32, "response": np.int32,
+                    "angle": np.float32, "descriptor": np.uint32}
+
+
+def keypoints_from_arrays(obj) -> Keypoints:
+    """A port :class:`Keypoints` from any object with the six keypoint fields.
+
+    ``obj`` may be a ``grayskull_tpu.core.Keypoints`` (of numpy or JAX arrays)
+    or a mapping; each field is copied into a CPU tensor of the table's dtype.
+    """
+    def get(name):
+        return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+    return Keypoints(**{name: torch.from_numpy(np.array(get(name), dtype))
+                        for name, dtype in _KEYPOINT_DTYPES.items()})
 
 
 _CASCADE_FIELDS = {

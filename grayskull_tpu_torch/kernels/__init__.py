@@ -6,6 +6,9 @@
 * :mod:`.integral` — K4 ``integral`` (uint32 2-D prefix sum: row scan, column scan)
 * :mod:`.lbp` — K5 ``lbp_eval_scale`` (one ladder scale of the LBP cascade, a
   thread per window with early exit)
+* :mod:`.fast` — K6 ``fast`` (FAST-9 score map, 3x3 NMS, packed scan-order keys)
+* :mod:`.patches` — K7 ``orb_moments`` (disc moments, a warp per keypoint) and
+  K8 ``orb_brief`` (rBRIEF words, a ballot per word)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -13,25 +16,37 @@ version for a CPU tensor.  :func:`launch_counts` reads how often each kernel was
 launched; :func:`reset_launch_counts` sets every count to 0.
 """
 
+from . import fast as _fast_mod
 from . import integral as _integral_mod
 from . import lbp as _lbp_mod
 from . import otsu as _otsu_mod
+from . import patches as _patches_mod
 from . import preproc as _preproc_mod
+from .fast import fast, fast_plain  # noqa: F401
 from .integral import integral, integral_plain  # noqa: F401
 from .lbp import lbp_eval_scale, lbp_eval_scale_plain  # noqa: F401
 from .otsu import otsu, otsu_plain  # noqa: F401
+from .patches import (extract_patches_plain, orb_brief, orb_brief_plain,  # noqa: F401
+                      orb_moments, orb_moments_plain)
 from .preproc import (blur_hist, blur_hist_plain, frame_histograms,  # noqa: F401
                       sobel_plain, threshold_sobel, threshold_sobel_plain)
 
 __all__ = [
     "blur_hist",
     "blur_hist_plain",
+    "extract_patches_plain",
+    "fast",
+    "fast_plain",
     "frame_histograms",
     "integral",
     "integral_plain",
     "launch_counts",
     "lbp_eval_scale",
     "lbp_eval_scale_plain",
+    "orb_brief",
+    "orb_brief_plain",
+    "orb_moments",
+    "orb_moments_plain",
     "otsu",
     "otsu_plain",
     "reset_launch_counts",
@@ -41,7 +56,7 @@ __all__ = [
 ]
 
 _COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
-             _lbp_mod.launches)
+             _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches)
 
 
 def launch_counts() -> dict:

@@ -5,8 +5,8 @@ JAX, so it also runs where only PyTorch is installed::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Every output is an integer or a bool and the Otsu sweep is bit-exact, so the
-tolerance is 0.
+Every output is an integer or a bool (angles are compared by their bits) and
+the Otsu sweep is bit-exact, so the tolerance is 0.
 """
 
 import numpy as np
@@ -15,6 +15,7 @@ import torch
 
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
+from grayskull_tpu_torch import libm32
 from grayskull_tpu_torch.core import LbpCascade
 from grayskull_tpu_torch.ops.lbp import _grid_plan
 
@@ -114,7 +115,7 @@ def test_preprocess_launches_every_kernel_on_card(cuda_device):
     out = gt.preprocess(imgs)
     counts = K.launch_counts()
     assert counts == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 1, "integral": 0,
-                      "lbp_eval_scale": 0}
+                      "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0, "orb_brief": 0}
     ref = gt.preprocess(imgs, force_reference=True)
     assert K.launch_counts() == counts
     for a, b in zip(out, ref):
@@ -184,7 +185,8 @@ def test_detect_faces_launches_its_kernels_on_card(cuda_device):
     out = gt.detect_faces(frames, step=2)
     nscales = len(_grid_plan(gt.load_frontalface(), 128, 128, 1.2, 1.0, 4.0, 2))
     assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0,
-                                 "integral": 1, "lbp_eval_scale": nscales}
+                                 "integral": 1, "lbp_eval_scale": nscales, "fast": 0,
+                                 "orb_moments": 0, "orb_brief": 0}
     ref = gt.detect_faces(frames, step=2, force_reference=True)
     assert K.launch_counts()["lbp_eval_scale"] == nscales
     on_cpu = gt.detect_faces(frames.cpu(), step=2)
@@ -208,3 +210,88 @@ def test_faces_wrappers_raise_on_card(cuda_device):
         K.lbp_eval_scale(cas, ii[:, :, ::2], 1.0, 1, 1)
     with pytest.raises(TypeError):
         K.lbp_eval_scale(cas, ii.view(torch.int32), 1.0, 1, 1)
+
+
+def _orb_frames(shape, seed, device):
+    """Random bytes, a period-2 checkerboard (every corner ties) and a dark frame
+    (p < thr: C's unsigned p - thr wraps), stacked on the frame axis."""
+    n, h, w = shape
+    rng = np.random.default_rng(seed)
+    checker = (np.indices((h, w)).sum(0) % 2 * 255).astype(np.uint8)
+    frames = [rng.integers(0, 256, shape, dtype=np.uint8),
+              np.broadcast_to(checker, shape), rng.integers(0, 4, shape, dtype=np.uint8)]
+    return torch.from_numpy(np.concatenate(frames)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129),
+                                   (2, 480, 640)])
+def test_fast_matches_plain_on_card(cuda_device, shape):
+    imgs = _orb_frames(shape, 40, cuda_device)
+    for thr in (0, 5, 20, 60, 200, -4):
+        score, key = K.fast(imgs, thr, want_score=True)
+        ref_score, ref_key = K.fast_plain(imgs, thr, want_score=True)
+        assert key.dtype == torch.int32 and key.is_cuda
+        assert torch.equal(score, ref_score) and torch.equal(key, ref_key), thr
+    assert K.fast(imgs, 20)[0] is None
+
+
+@pytest.mark.cuda
+def test_fast_wide_keys_on_card(cuda_device):
+    imgs = _orb_frames((1, 2900, 2900), 41, cuda_device)[:1]
+    key = K.fast(imgs, 20)[1]
+    assert key.dtype == torch.int64
+    assert torch.equal(key, K.fast_plain(imgs, 20)[1])
+
+
+@pytest.mark.cuda
+def test_orb_moments_and_brief_match_plain_on_card(cuda_device):
+    rng = np.random.default_rng(42)
+    h, w = 64, 200
+    imgs = _frames((2, h, w), 43, cuda_device)
+    edge = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (19, 19), (20, 20), (w - 20, h - 20),
+            (-30, -25), (w + 4, h + 30), (w + 60, -1)]
+    xs = np.array([p[0] for p in edge] + rng.integers(0, w, 54).tolist(), np.int32)
+    ys = np.array([p[1] for p in edge] + rng.integers(0, h, 54).tolist(), np.int32)
+    x = torch.from_numpy(np.stack([xs, xs[::-1]])).to(cuda_device)
+    y = torch.from_numpy(np.stack([ys, ys[::-1]])).to(cuda_device)
+    for r in (15, 0, 20):
+        for a, b in zip(K.orb_moments(imgs, x, y, r), K.orb_moments_plain(imgs, x, y, r)):
+            assert a.is_cuda and torch.equal(a, b), r
+    angles = np.concatenate([[0.0, np.pi, -np.pi], rng.uniform(-np.pi, np.pi, 61)])
+    a = torch.from_numpy(np.stack([angles, angles[::-1]]).astype(np.float32)).to(cuda_device)
+    s, c = libm32.sinf(a), libm32.cosf_like_reference(a)
+    got = K.orb_brief(imgs, x, y, s, c)
+    assert got.dtype == torch.uint32 and got.is_cuda
+    assert torch.equal(got.view(torch.int32), K.orb_brief_plain(imgs, x, y, s, c).view(torch.int32))
+
+
+def _bits_of(table):
+    return [v.view(torch.int32) if v.dtype in (torch.float32, torch.uint32) else v for v in table]
+
+
+@pytest.mark.cuda
+def test_orb_extract_on_card_matches_cpu_exact_host(cuda_device):
+    lena = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/lena.pgm")
+    frames = torch.from_numpy(np.stack([lena, np.roll(lena, 9, axis=1)])).to(cuda_device)
+    K.reset_launch_counts()
+    out = gt.orb_extract(frames, 300, 20)
+    counts = K.launch_counts()
+    assert {k: counts[k] for k in ("fast", "orb_moments", "orb_brief")} == {
+        "fast": 1, "orb_moments": 1, "orb_brief": 1}
+    ref = gt.orb_extract(frames, 300, 20, force_reference=True)
+    for a, b in zip(_bits_of(out), _bits_of(ref)):
+        assert a.is_cuda and torch.equal(a, b)
+    libm32.use_exact_host_libm(True)
+    try:
+        on_card = gt.orb_extract(frames, 300, 20)
+        on_cpu = gt.orb_extract(frames.cpu(), 300, 20)
+        tk, sk, m = gt.track(frames[0, :100, :120], frames[1], max_kps=400)
+        ck = gt.track(frames[0, :100, :120].cpu(), frames[1].cpu(), max_kps=400)
+    finally:
+        libm32.use_exact_host_libm(False)
+    for a, b in zip(_bits_of(on_card), _bits_of(on_cpu)):
+        assert torch.equal(a.cpu(), b)
+    for got, want in zip((tk, sk, m), ck):
+        for a, b in zip(_bits_of(got), _bits_of(want)):
+            assert torch.equal(a.cpu(), b)

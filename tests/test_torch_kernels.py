@@ -103,8 +103,13 @@ def test_plain_runs_on_cpu_without_counting():
     K.threshold_sobel(imgs, K.otsu(hist, 90))
     ii = K.integral(imgs)
     K.lbp_eval_scale(synthetic_cascade(), ii, 1.0, 1, 2, 1)
+    xy = torch.full((1, 3), 4, dtype=torch.int32)
+    K.fast(imgs, 20)
+    K.orb_moments(imgs, xy, xy)
+    K.orb_brief(imgs, xy, xy, torch.zeros((1, 3)), torch.ones((1, 3)))
     assert K.launch_counts() == before
-    assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale"}
+    assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale",
+                           "fast", "orb_moments", "orb_brief"}
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
@@ -213,7 +218,8 @@ def test_wrappers_reject_bad_input():
 
 def test_build_command_targets_hopper_without_fma(tmp_path):
     srcs = _build.sources()
-    assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu"}
+    assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu", "fast.cu",
+                                      "patches.cu"}
     for src in srcs:  # one nvcc per source, started together
         cmd = _build.compile_command(src, tmp_path / f"{src.stem}.o")
         assert cmd[0].endswith("nvcc")
@@ -232,7 +238,8 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
     assert _build._library_path(srcs) == _build._library_path(srcs)
     assert _build._library_path(srcs[:1]) != _build._library_path(srcs)
     assert set(_build._SIGNATURES) == {"gs_blur_hist", "gs_threshold_sobel", "gs_otsu",
-                                       "gs_integral", "gs_lbp_eval_scale"}
+                                       "gs_integral", "gs_lbp_eval_scale", "gs_fast",
+                                       "gs_orb_moments", "gs_orb_brief"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
