@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
 It builds the port's CUDA kernels from ``grayskull_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel bit for bit to its plain PyTorch version on the
-card, and drives the port's three paths, each entry point with the launch
+card, and drives the port's four paths, each entry point with the launch
 counts set to 0 just before it and read just after:
 
 * preprocess (``grayskull_tpu_torch.preprocess``: blur(2) -> Otsu -> threshold
@@ -23,13 +23,21 @@ counts set to 0 just before it and read just after:
   2,500 keypoints; and the same-shape pair of aruco and aruco rolled 9
   columns through ``orb_extract`` + ``match_orb``), checked against the plain
   path on the card, in the ``exact_host`` trig mode against the plain path on
-  the CPU, and against the FAST and matching goldens.
+  the CPU, and against the FAST and matching goldens;
+* the document scanner (``grayskull_tpu_torch.scan``: blur(1) -> Otsu+10 ->
+  blobs -> the largest blob's corners -> a 1000x800 page, on 8 frames of
+  ``document.pgm`` rolled 3*i columns and on one frame), checked against the
+  plain path on the card, the plain path on the CPU for two frames, and the
+  goldens ``blobs_*``, ``multiblob_*`` and ``persp``.
 
-Then it times all three with CUDA events.  Each phase prints one JSON line; then
-come the per-kernel summary line and the card's ``nvidia-smi`` name and power
-limit, and the last line is ``{"ok": true, "device": {...}}``.  Any failure
-raises and the exit code is non-zero; without a CUDA device it exits 1 and
-prints no result.
+Then it times all four with CUDA events and profiles the scanner
+(``torch.profiler``: device time by kernel, idle share, host enqueue time).
+Each phase prints one JSON line; then come the per-kernel summary line (each
+kernel's launches on its path, largest error, time, plain version's time,
+bound and, where one PyTorch call computes the same function, that call's
+time) and the card's ``nvidia-smi`` name and power limit, and the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
+non-zero; without a CUDA device it exits 1 and prints no result.
 """
 
 import json
@@ -48,6 +56,7 @@ from grayskull_tpu_torch.io import read_pgm
 from grayskull_tpu_torch.core import LbpCascade
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.kernels.integral import u32_to_int64
+from grayskull_tpu_torch.kernels.warp import warp_grid
 from grayskull_tpu_torch.ops.lbp import _grid_plan
 from grayskull_tpu_torch.profiling import timeit
 
@@ -80,6 +89,11 @@ KERNELS = {
                     "replaces": "grayskull_tpu/kernels/patches.py:99"},
     "orb_brief": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/patches.cu",
                   "replaces": "grayskull_tpu/kernels/patches.py:99"},
+    "ccl": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/ccl.cu",
+            "replaces": "grayskull_tpu/kernels/ccl.py:161"},
+    "quad_warp": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/warp.cu",
+                  "replaces": "grayskull_tpu/kernels/warp.py:163",
+                  "also_replaces": "grayskull_tpu/kernels/warp.py:98"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
@@ -90,6 +104,24 @@ TRACK_KPS, PAIR_CAP, PAIR_DIST = 2500, 500, 64
 FAST_SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (16, 480, 640),
                (1, 2900, 2900)]  # the last is past 2^23 pixels: int64 keys
 FAST_THRESHOLDS = (0, 5, 20, 60, 200)
+SCAN_KERNELS = ("blur_hist", "otsu", "ccl", "quad_warp")
+SCAN_N, SCAN_PAGE, SCAN_CAP = 8, (1000, 800), 1000
+CCL_SHAPES = [(1, 1, 4096), (1, 4096, 1), (1, 7, 8), (1, 17, 129), (1, 768, 1024),
+              (8, 768, 1024)]
+CCL_DENSITIES = (0.3, 0.55, 0.6)
+WARP_PAGES = [(1000, 800), (347, 200), (1, 10), (10, 1), (4000, 3000)]
+WARP_QUADS = {  # on document.pgm (768 wide, 1024 high), tests/test_integral_template_warp.py:193
+    "mild": [[50, 40], [700, 60], [690, 1000], [40, 980]],
+    "steep": [[0, 400], [760, 0], [767, 600], [10, 1010]],
+    "extreme": [[10, 700], [1000, 10], [1020, 760], [3, 10]],
+    "identity": [[0, 0], [767, 0], [767, 1023], [0, 1023]],
+    "outside": [[-60, -45], [900, -10], [820, 1200], [-30, 1100]],
+}
+# the least time of a kernel: bytes over the memory rate or operations over the
+# float32 rate, whichever is larger (NVIDIA's H100 SXM data sheet, 700 W; the
+# integer operations are counted at the same rate)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def emit(phase, **kv):
@@ -98,6 +130,16 @@ def emit(phase, **kv):
 
 def _wide(t):
     return u32_to_int64(t) if t.dtype == torch.uint32 else t.to(torch.int64)
+
+
+def kernel_entry(ms, plain_ms, nbytes, ops, library_ms=None, library=None):
+    """A kernel's times beside its bound: the larger of ``nbytes`` (each input
+    read once, each output written once) over the memory rate and ``ops`` over
+    the operation rate, in ms."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms, "library": library}
 
 
 class Checker:
@@ -227,8 +269,8 @@ def phase_main_path(chk, dev):
     pgms = sorted(f for f in os.listdir(tdir) if f.endswith(".pgm"))
     for fn in pgms:
         frame = read_pgm(os.path.join(tdir, fn))
-        on_card = gt.preprocess(gt.as_image(frame).to(dev))
-        on_cpu = gt.preprocess_reference(frame)
+        on_card = gt.preprocess(gt.as_image(frame))  # a host array goes to the card
+        on_cpu = gt.preprocess_reference(torch.from_numpy(frame.copy()))
         for name, a, b in zip(("blurred", "binary", "edges", "thresholds"), on_card, on_cpu):
             if not torch.equal(a.cpu(), b):
                 raise AssertionError(f"{fn} {name}: card differs from the plain path on the CPU")
@@ -253,19 +295,33 @@ def phase_timing(batch, card):
         "threshold_sobel": (lambda: K.threshold_sobel(blurred, t, True),
                             lambda: K.threshold_sobel_plain(blurred, t, True)),
     }
+    n, px = batch.shape[0], batch.numel()
+    xf = batch.to(torch.float32)[:, None]
+    k = 2 * MAIN_R + 1
+    pool_ms = timeit(torch.nn.functional.avg_pool2d, xf, k, 1, MAIN_R,
+                     count_include_pad=False) * 1e3
+    del xf
+    # per pixel: K1 4 + 4 running-sum adds, a division, a histogram add; K2 a
+    # compare, 11 stencil adds, 2 abs, a shift, a min; K3 about 14 float ops a bin
+    cost = {"blur_hist": (2 * px + n * 1024, 10 * px,
+                          pool_ms, "avg_pool2d(count_include_pad=False) of the float frames: "
+                                   "float mean, no truncation, no histogram"),
+            "otsu": (n * 1024 + n, n * 256 * 14, None, "none: no PyTorch call computes Otsu"),
+            "threshold_sobel": (3 * px + n, 16 * px, None,
+                                "none: no one call gives (|gx|+|gy|)/2 of the binarized frame")}
     times = {}
     for name, (kernel, plain) in pairs.items():
-        times[name] = (timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3)
-        emit("kernel_time", card=card, kernel=name, shape=list(batch.shape),
-             ms=times[name][0], plain_ms=times[name][1])
+        times[name] = kernel_entry(timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3,
+                                   *cost[name])
+        emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), **times[name])
     # the standalone ops (blur, sobel) take the same kernels without the histogram or thresholds
-    for name, kernel, plain in (
+    for name, kernel, plain, ops in (
             ("blur_hist without histogram", lambda: K.blur_hist(batch, MAIN_R, False),
-             lambda: K.blur_hist_plain(batch, MAIN_R, False)),
+             lambda: K.blur_hist_plain(batch, MAIN_R, False), 9 * px),
             ("threshold_sobel without thresholds", lambda: K.threshold_sobel(batch),
-             lambda: K.threshold_sobel_plain(batch))):
+             lambda: K.threshold_sobel_plain(batch), 15 * px)):
         emit("kernel_time", card=card, kernel=name, shape=list(batch.shape),
-             ms=timeit(kernel) * 1e3, plain_ms=timeit(plain, iters=3) * 1e3)
+             **kernel_entry(timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3, 2 * px, ops))
     emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     return times
 
@@ -410,16 +466,25 @@ def phase_faces_timing(batch, card):
     def k5(evaluate):
         return [evaluate(cascade, ii, scale, ny, nx, FACES_STEP) for scale, _, _, ny, nx in plan]
 
+    px = batch.numel()
+    # K5 reads the integral once a scale and writes a hit a window; every window
+    # runs at least stage 0, about 40 integer operations a weak (16 corner reads,
+    # 9 block sums, 8 compares, the subset test, the float add)
+    stage0 = int(cascade.stage_nweaks[0])
     times = {
-        "integral": (timeit(K.integral, batch) * 1e3,
-                     timeit(K.integral_plain, batch, iters=3) * 1e3),
-        "lbp_eval_scale": (timeit(k5, K.lbp_eval_scale) * 1e3,
-                           timeit(k5, K.lbp_eval_scale_plain, iters=1, warmup=1, repeat=1) * 1e3),
+        "integral": kernel_entry(timeit(K.integral, batch) * 1e3,
+                                 timeit(K.integral_plain, batch, iters=3) * 1e3,
+                                 5 * px, 2 * px, None,
+                                 "none: a 2-D prefix sum is two cumsum calls"),
+        "lbp_eval_scale": kernel_entry(
+            timeit(k5, K.lbp_eval_scale) * 1e3,
+            timeit(k5, K.lbp_eval_scale_plain, iters=1, warmup=1, repeat=1) * 1e3,
+            len(plan) * 4 * px + FACES_N * nwin, FACES_N * nwin * stage0 * 40, None,
+            "none: no PyTorch call evaluates an LBP cascade"),
     }
-    for name, (ms, plain_ms) in times.items():
-        emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), ms=ms,
-             plain_ms=plain_ms, **({"summed_over_scales": len(plan)}
-                                   if name == "lbp_eval_scale" else {}))
+    for name, entry in times.items():
+        emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), **entry,
+             **({"summed_over_scales": len(plan)} if name == "lbp_eval_scale" else {}))
     emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     return times
 
@@ -526,9 +591,10 @@ def _equal_on_cpu(got, ref, what):
             raise AssertionError(f"{what} {name}: card differs from the plain path on the CPU")
 
 
-def _launched(fn, *args):
+def _launched(kernels, fn, *args):
     """``fn(*args)`` with the counts reset just before and read just after, and
-    PyTorch's sync debug mode raising on any host sync inside it."""
+    PyTorch's sync debug mode raising on any host sync inside it; fails unless
+    every kernel named in ``kernels`` launched."""
     torch.cuda.synchronize()
     K.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
@@ -538,7 +604,7 @@ def _launched(fn, *args):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    missing = [name for name in ORB_KERNELS if launches.get(name, 0) < 1]
+    missing = [name for name in kernels if launches.get(name, 0) < 1]
     if missing:
         raise AssertionError(f"{fn.__name__} did not launch {missing}: {launches}")
     return out, launches
@@ -550,9 +616,9 @@ def phase_orb_path(chk, dev):
     scene = torch.from_numpy(aruco).to(dev)
     tmpl = torch.from_numpy(aruco[100:350, 150:450].copy()).to(dev)
     shifted = torch.from_numpy(np.roll(aruco, 9, axis=1)).to(dev)
-    kps, l_extract = _launched(gt.orb_extract, batch, ORB_CAP, ORB_THR)
-    tracked, l_track = _launched(gt.track, tmpl, scene, TRACK_KPS)
-    paired, l_pair = _launched(track_pair, scene, shifted)
+    kps, l_extract = _launched(ORB_KERNELS, gt.orb_extract, batch, ORB_CAP, ORB_THR)
+    tracked, l_track = _launched(ORB_KERNELS, gt.track, tmpl, scene, TRACK_KPS)
+    paired, l_pair = _launched(ORB_KERNELS, track_pair, scene, shifted)
     launches = {name: l_extract[name] + l_track[name] + l_pair[name] for name in KERNELS}
 
     _same_tables(chk, kps, gt.orb_extract(batch, ORB_CAP, ORB_THR, force_reference=True),
@@ -644,12 +710,239 @@ def phase_orb_timing(frames, card):
         "orb_brief": (lambda: K.orb_brief(batch, sx, sy, sin, cos),
                       lambda: K.orb_brief_plain(batch, sx, sy, sin, cos)),
     }
+    px, nk = batch.numel(), sx.numel()
+    dy, dx = np.mgrid[-15:16, -15:16]
+    disc = int((dx * dx + dy * dy <= 225).sum())
+    # K6 about 120 integer operations a pixel (PERF.md); K7 2 multiplies and 2
+    # adds a disc pixel; K8 about 12 operations a pair (rotation, rounding, 2
+    # reads, a compare), 256 pairs
+    cost = {"fast": (5 * px, 120 * px, None, "none: no PyTorch call computes FAST"),
+            "orb_moments": (px + 16 * nk, 4 * disc * nk, None,
+                            "none: no one call sums a disc around each keypoint"),
+            "orb_brief": (px + 16 * nk + 32 * nk, 12 * 256 * nk, None,
+                          "none: no PyTorch call computes rBRIEF")}
     times = {}
     for name, (kernel, plain) in pairs.items():
-        times[name] = (timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3)
+        times[name] = kernel_entry(timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3,
+                                   *cost[name])
         emit("kernel_time", card=card, kernel=name,
-             shape=list(batch.shape) if name == "fast" else [ORB_N, ORB_CAP],
-             ms=times[name][0], plain_ms=times[name][1])
+             shape=list(batch.shape) if name == "fast" else [ORB_N, ORB_CAP], **times[name])
+    emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return times
+
+
+def document_batch(n):
+    """``benchmarks/bench_all.py:153``'s frames: document.pgm rolled 3*i columns."""
+    doc = read_pgm(os.path.join(HERE, "tests", "golden", "testdata", "document.pgm"))
+    if doc is None:
+        raise FileNotFoundError("tests/golden/testdata/document.pgm")
+    return np.stack([np.roll(doc, 3 * i, axis=1) for i in range(n)])
+
+
+def spiral(h, w, gap=4):
+    """A one-arm rectangular spiral, arms ``gap`` pixels apart: one component
+    whose minimum must travel the whole arm (tests/test_blobs_contour.py:440)."""
+    sp = np.zeros((h, w), np.uint8)
+    top, bot, lef, rig = 0, h - 1, 0, w - 1
+    while top <= bot and lef <= rig:
+        sp[top, lef:rig + 1] = sp[top:bot + 1, rig] = sp[bot, lef:rig + 1] = 255
+        sp[top:bot + 1, lef] = 255
+        top, bot, lef, rig = top + gap, bot - gap, lef + gap, rig - gap
+        if lef <= rig:
+            sp[top - gap + 1:top + 1, lef] = 255
+    return sp
+
+
+def snake():
+    """tests/test_blobs_contour.py:427: a snake zigzagging between 8-row strips."""
+    sn = np.zeros((16, 128), np.uint8)
+    for i, x in enumerate(range(0, 128, 8)):
+        sn[:, x] = 255
+        sn[15 if i % 2 == 0 else 0, x: x + 9] = 255
+    return sn
+
+
+def _blob_fields(table):
+    return [table.n, table.label, table.area, *table.box, *table.centroid]
+
+
+def phase_scan_kernels(chk, rng, dev):
+    cases = [("snake", snake()[None]), ("spiral 40x128", spiral(40, 128)[None]),
+             ("spiral 1024x1024", spiral(1024, 1024)[None]),
+             ("all foreground", np.full((2, 300, 400), 255, np.uint8)),
+             ("empty", np.zeros((2, 300, 400), np.uint8))]
+    for shape in CCL_SHAPES:
+        for d in CCL_DENSITIES:
+            cases.append((f"{shape} density {d}", ((rng.random(shape) < d) * 255).astype(np.uint8)))
+    for what, frames in cases:
+        imgs = torch.from_numpy(frames).to(dev)
+        chk.same("ccl", K.ccl(imgs), K.ccl_plain(imgs), what)
+    torch.cuda.synchronize()
+    # an all-255 2100x2100 frame: one blob whose coordinate sums pass 2^32
+    full = torch.full((1, 2100, 2100), 255, dtype=torch.uint8, device=dev)
+    chk.same("ccl", K.ccl(full), K.ccl_plain(full), "2100x2100 all 255")
+    table, labels, _ = gt.blobs(full, 4)
+    ref = gt.blobs(full, 4, force_reference=True)
+    for a, b in zip(_blob_fields(table) + [labels], _blob_fields(ref[0]) + [ref[1]]):
+        chk.same("ccl", a if a.dtype != torch.uint16 else a.to(torch.int32),
+                 b if b.dtype != torch.uint16 else b.to(torch.int32), "2100x2100 blobs")
+    coord_sum = 2100 * (2099 * 2100 // 2)
+    want = (coord_sum % 2**32) // (2100 * 2100)
+    if coord_sum < 2**32 or [int(v[0, 0]) for v in table.centroid] != [want, want]:
+        raise AssertionError(f"2100x2100 centroid {[int(v[0, 0]) for v in table.centroid]}, "
+                             f"want {want} from the sum mod 2^32")
+
+    src = torch.from_numpy(document_batch(SCAN_N)).to(dev)
+    for name, quad in WARP_QUADS.items():
+        for page in WARP_PAGES:
+            frames = src if page == SCAN_PAGE else src[:2].contiguous()
+            c = torch.tensor(quad, dtype=torch.int32, device=dev).expand(len(frames), 4, 2)
+            c = c.contiguous()
+            chk.same("quad_warp", K.quad_warp(frames, c, page), K.quad_warp_plain(frames, c, page),
+                     f"{name} {page}")
+        torch.cuda.synchronize()
+    emit("scan_kernels_vs_plain", ok=True, ccl_cases=len(cases) + 1,
+         ccl_shapes=[list(s) for s in CCL_SHAPES], densities=list(CCL_DENSITIES),
+         warp_quads=sorted(WARP_QUADS), warp_pages=[list(p) for p in WARP_PAGES],
+         full_frame_centroid=want, checks={k: chk.checks[k] for k in ("ccl", "quad_warp")},
+         max_abs_err={k: chk.max_err[k] for k in ("ccl", "quad_warp")})
+
+
+def _scan_batch(frames):
+    return gt.scan(frames, SCAN_PAGE, SCAN_CAP)
+
+
+def phase_scan_path(chk, dev):
+    host = document_batch(SCAN_N)
+    batch = torch.from_numpy(host).to(dev)
+    (pages, corners), l_batch = _launched(SCAN_KERNELS, _scan_batch, batch)
+    (page, corner), l_single = _launched(SCAN_KERNELS, _scan_batch, batch[0])
+    for name in SCAN_KERNELS:  # one launch each, whatever the batch size
+        if l_batch[name] != 1 or l_single[name] != 1:
+            raise AssertionError(f"scan launched {name} {l_batch[name]} and {l_single[name]} times")
+    launches = {name: l_batch[name] + l_single[name] for name in KERNELS}
+    if tuple(pages.shape) != (SCAN_N, *SCAN_PAGE) or tuple(corners.shape) != (SCAN_N, 4, 2):
+        raise AssertionError(f"scan: shapes {tuple(pages.shape)}, {tuple(corners.shape)}")
+    ref_pages, ref_corners = gt.scan(batch, SCAN_PAGE, SCAN_CAP, force_reference=True)
+    chk.same("quad_warp", pages, ref_pages, "scan pages vs plain path")
+    chk.same("ccl", corners, ref_corners, "scan corners vs plain path")
+    chk.same("quad_warp", page, pages[0], "single frame vs batch")
+    chk.same("ccl", corner, corners[0], "single frame corners vs batch")
+    rows = [0, SCAN_N - 1]
+    cpu_pages, cpu_corners = gt.scan(torch.from_numpy(host[rows]), SCAN_PAGE, SCAN_CAP)
+    if not (torch.equal(pages[rows].cpu(), cpu_pages)
+            and torch.equal(corners[rows].cpu(), cpu_corners)):
+        raise AssertionError("scan: card differs from the plain path on the CPU")
+    binary = gt.preprocess_binarize(batch)
+    table, _, overflowed = gt.blobs(binary, SCAN_CAP)
+
+    g = np.load(os.path.join(HERE, "tests", "golden", "goldens.npz"))
+    for key, cap in (("blobs", 500), ("multiblob", 64)):
+        t, lab, _ = gt.blobs(torch.from_numpy(g[f"{key}_input"]).to(dev), cap)
+        n = int(t.n)
+        got = {"labels": lab.cpu().numpy(), "label": t.label[:n].cpu().numpy(),
+               "area": t.area[:n].cpu().numpy(),
+               "box": torch.stack([v[:n] for v in t.box], 1).cpu().numpy(),
+               "centroid": torch.stack([v[:n] for v in t.centroid], 1).cpu().numpy()}
+        for field, value in got.items():
+            if not np.array_equal(value.astype(np.int64), g[f"{key}_{field}"].astype(np.int64)):
+                raise AssertionError(f"golden {key}_{field} differs on the card")
+    mb = torch.from_numpy(g["multiblob_input"]).to(dev)
+    t, lab, _ = gt.blobs(mb, 64)
+    big = int(t.area.argmax())
+    mc = gt.blob_corners(mb, lab, t.label[big], gt.Rect(*(v[big] for v in t.box)),
+                         gt.Point(*(v[big] for v in t.centroid)))
+    persp = gt.perspective_correct(torch.from_numpy(g["input"]).to(dev),
+                                   torch.from_numpy(g["persp_corners"].astype(np.int32)), (50, 70))
+    if (not np.array_equal(mc.cpu().numpy(), g["multiblob_corners"].astype(np.int64))
+            or not np.array_equal(persp.cpu().numpy(), g["persp"])):
+        raise AssertionError("golden multiblob_corners or persp differs on the card")
+    emit("scan_path", ok=True, frames=SCAN_N, height=batch.shape[1], width=batch.shape[2],
+         page=list(SCAN_PAGE), max_blobs=SCAN_CAP, launches=launches, launches_batch=l_batch,
+         launches_single=l_single, blobs=table.n.tolist(), overflowed=overflowed.tolist(),
+         corners_frame0=corners[0].tolist(), cpu_frames_checked=rows,
+         goldens=["blobs_*", "multiblob_*", "persp"])
+    return batch, corners, launches
+
+
+def profile_calls(fn, *args, calls=10):
+    """Device time per call by kernel and by the PyTorch op that launched it
+    (over ``calls`` calls, device events only), the CUDA-event time and the
+    host's enqueue time of one call, and the idle share 1 - busy / timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    timed = timeit(fn, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    busy = sum(by_kernel.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    by_op = [(e.key, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
+             if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    return {"timed_ms": timed * 1e3, "enqueue_ms": enqueue * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (timed * 1e3), "device_kernels": len(by_kernel),
+            "device_ms_by_kernel": [[name[:120], ms] for name, ms in
+                                    sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]],
+            "device_ms_by_op": sorted(by_op, key=lambda kv: -kv[1])[:12]}
+
+
+def phase_scan_timing(batch, corners, card):
+    single = batch[0]
+    t_batch = timeit(_scan_batch, batch)
+    t_single = timeit(_scan_batch, single)
+    t_ref = timeit(gt.scan, batch, SCAN_PAGE, SCAN_CAP, force_reference=True, iters=2, repeat=1)
+    t_ref1 = timeit(gt.scan, single, SCAN_PAGE, SCAN_CAP, force_reference=True, iters=2,
+                    repeat=1)
+    emit("scan_timing", card=card, metric="document_scan_batched_fps", value=SCAN_N / t_batch,
+         unit="frames/sec/card", frames=SCAN_N, ms_per_batch=t_batch * 1e3,
+         document_scan_latency_ms=t_single * 1e3, plain_path_batched_fps=SCAN_N / t_ref,
+         plain_path_ms_per_batch=t_ref * 1e3, plain_path_latency_ms=t_ref1 * 1e3,
+         windows="median of 3 windows of 20 calls (plain path: 1 window of 2 calls) after "
+                 "2 warm-up calls")
+    binary = gt.preprocess_binarize(batch)
+    n, sh, sw = batch.shape
+    dh, dw = SCAN_PAGE
+    px, page_px = batch.numel(), n * dh * dw
+    # grid_sample on the same source coordinates (align_corners: -1 and 1 are
+    # the first and last pixel): bilinear, not bit-exact with the reference
+    u = warp_grid(dw, batch.device).view(1, 1, dw)
+    v = warp_grid(dh, batch.device).view(1, dh, 1)
+    c = corners.to(torch.float32).view(n, 4, 2, 1, 1)
+    sx, sy = ((c[:, 0, i] * (1 - u) + c[:, 1, i] * u) * (1 - v)
+              + (c[:, 3, i] * (1 - u) + c[:, 2, i] * u) * v for i in (0, 1))
+    grid = torch.stack([sx / (sw - 1) * 2 - 1, sy / (sh - 1) * 2 - 1], -1)
+    src_f = batch.to(torch.float32)[:, None]
+    gs_ms = timeit(torch.nn.functional.grid_sample, src_f, grid, mode="bilinear",
+                   padding_mode="border", align_corners=True) * 1e3
+    del src_f, grid
+    # K9: a find per neighbour and a flatten, about 10 operations a pixel;
+    # K10: about 60 float operations and 4 reads a page pixel
+    times = {
+        "ccl": kernel_entry(timeit(K.ccl, binary) * 1e3,
+                            timeit(K.ccl_plain, binary, iters=1, repeat=1) * 1e3,
+                            5 * px, 10 * px, None, "none: PyTorch has no component labelling"),
+        "quad_warp": kernel_entry(
+            timeit(K.quad_warp, batch, corners, SCAN_PAGE) * 1e3,
+            timeit(K.quad_warp_plain, batch, corners, SCAN_PAGE, iters=3) * 1e3,
+            px + 32 * n + page_px, 60 * page_px, gs_ms,
+            "grid_sample(bilinear, align_corners=True) of the float frames at the same "
+            "coordinates: not bit-exact"),
+    }
+    for name, entry in times.items():
+        emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), **entry)
+    for label, frames in (("scan 8 frames", batch), ("scan 1 frame", single)):
+        emit("scan_profile", card=card, entry=label, **profile_calls(_scan_batch, frames))
     emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     return times
 
@@ -670,19 +963,23 @@ def main():
     phase_kernels(chk, np.random.default_rng(0), dev)
     phase_faces_kernels(chk, np.random.default_rng(1), dev)
     phase_orb_kernels(chk, np.random.default_rng(2), dev)
+    phase_scan_kernels(chk, np.random.default_rng(3), dev)
     batch, pre_launches = phase_main_path(chk, dev)
     faces_batch, faces_launches = phase_faces_path(chk, dev)
     orb_frames, orb_launches = phase_orb_path(chk, dev)
+    scan_batch, scan_corners, scan_launches = phase_scan_path(chk, dev)
     times = phase_timing(batch, card)
+    del batch
     times.update(phase_faces_timing(faces_batch, card))
     times.update(phase_orb_timing(orb_frames, card))
+    times.update(phase_scan_timing(scan_batch, scan_corners, card))
 
     # each path ran with the counts at 0 and launches only its own kernels
     launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]
-                for name in KERNELS}
+                + scan_launches[name] for name in KERNELS}
     summary = [{"name": name, **info, "launches": launches[name],
-                "max_abs_err": chk.max_err[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name, info in KERNELS.items()]
+                "max_abs_err": chk.max_err[name], **times[name]}
+               for name, info in KERNELS.items()]
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,12 +3,13 @@
 The same uint8 NHW convention, module layout and function names as
 ``grayskull_tpu``, computed on each tensor's own device: a CUDA tensor runs
 hand-written Hopper kernels (``csrc/*.cu``, built with ``nvcc`` on first use), a
-CPU tensor their plain PyTorch versions.  Outputs are bit-exact with the JAX
-package.  Three slices are ported, the preprocess main path, face detection and
-ORB::
+CPU tensor their plain PyTorch versions; a numpy array goes to the CUDA device
+(:func:`core.host_arrays_to` asks for the CPU instead).  Outputs are bit-exact
+with the JAX package.  Four slices are ported, the preprocess main path, face
+detection, ORB and the document scanner::
 
     import grayskull_tpu_torch as gs
-    frames = torch.as_tensor(gs.io.read_pgm_batch(paths)).cuda()
+    frames = gs.as_image(gs.io.read_pgm_batch(paths))   # on the card
     # blur(2) -> Otsu -> threshold -> Sobel
     blurred, binary, edges, thresholds = gs.preprocess(frames)
     # integral -> LBP cascade over the scale ladder -> first 100 rects per frame
@@ -17,22 +18,26 @@ ORB::
     kps = gs.orb_extract(frames, 500, 20)
     # pyramid ORB on two frames -> Hamming matches
     tmpl_kps, scene_kps, matches = gs.track(frames[0], frames[1])
+    # blur(1) -> Otsu+10 -> blobs -> largest blob's corners -> 1000x800 page
+    pages, corners = gs.scan(frames)
 
 The package imports no JAX and builds nothing at import.
 """
 
 from . import cascade, core, io, kernels, libm32, ops, pipelines, profiling  # noqa: F401
 from .cascade import load_frontalface, load_opencv_xml  # noqa: F401
-from .core import (Keypoints, LbpCascade, Matches, Point, Rect, Rects, as_image,  # noqa: F401
-                   is_batched)
-from .ops import (blur, brief_descriptor, compute_orientation, downsample, fast,  # noqa: F401
-                  fast_scoremap, hamming_distance, histogram, integral, integral_sum,
-                  lbp_detect, lbp_warm_start, lbp_window, match_orb, orb_extract,
-                  otsu_from_histogram, otsu_threshold, scale_ladder, sobel, threshold)
+from .core import (Blobs, Keypoints, LbpCascade, Matches, Point, Rect, Rects,  # noqa: F401
+                   as_image, is_batched)
+from .ops import (blob_corners, blobs, blur, brief_descriptor, compute_orientation,  # noqa: F401
+                  downsample, fast, fast_scoremap, hamming_distance, histogram, integral,
+                  integral_sum, label_components, lbp_detect, lbp_warm_start, lbp_window,
+                  match_orb, orb_extract, otsu_from_histogram, otsu_threshold,
+                  perspective_correct, scale_ladder, sobel, threshold)
 from .pipelines import (detect_faces, extract_pyramid_orb, preprocess,  # noqa: F401
-                        preprocess_reference, track)
+                        preprocess_binarize, preprocess_reference, scan, track)
 
 __all__ = [
+    "Blobs",
     "Keypoints",
     "LbpCascade",
     "Matches",
@@ -40,6 +45,8 @@ __all__ = [
     "Rect",
     "Rects",
     "as_image",
+    "blob_corners",
+    "blobs",
     "blur",
     "brief_descriptor",
     "compute_orientation",
@@ -53,6 +60,7 @@ __all__ = [
     "integral",
     "integral_sum",
     "is_batched",
+    "label_components",
     "lbp_detect",
     "lbp_warm_start",
     "lbp_window",
@@ -62,9 +70,12 @@ __all__ = [
     "orb_extract",
     "otsu_from_histogram",
     "otsu_threshold",
+    "perspective_correct",
     "preprocess",
+    "preprocess_binarize",
     "preprocess_reference",
     "scale_ladder",
+    "scan",
     "sobel",
     "threshold",
     "track",

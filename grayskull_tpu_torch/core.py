@@ -2,29 +2,35 @@
 
 An image is a ``torch.uint8`` tensor of shape ``(H, W)`` (one frame) or
 ``(N, H, W)`` (a batch), exactly the convention of ``grayskull_tpu.core``.  Ops
-compute on the tensor's own device and never move data on their own: a CUDA
-tensor runs the port's kernels, a CPU tensor their plain versions.  There is no
-``on_tpu`` gate; ``tensor.is_cuda`` chooses.
+compute on the tensor's own device: a CUDA tensor runs the port's kernels, a
+CPU tensor their plain versions.  There is no ``on_tpu`` gate; ``tensor.is_cuda``
+chooses.  A host array (numpy, a list) goes to the CUDA device; with no CUDA
+device it raises, unless the caller asked for the CPU with
+:func:`host_arrays_to` (or passed a CPU tensor).
 
 Coordinates follow the reference: ``x`` is the column (fast axis), ``y`` the row.
 Sparse results are fixed-capacity tables with an explicit valid count, as in
 the JAX package: :class:`Rects` holds LBP detections, :class:`Keypoints` ORB
-keypoints and :class:`Matches` descriptor matches.  :class:`LbpCascade` is the
-cascade's host-side numpy data, shared with the JAX package through
-:func:`lbp_cascade_from_arrays`; :func:`keypoints_from_arrays` takes a keypoint
-table across the same way.
+keypoints, :class:`Matches` descriptor matches and :class:`Blobs` connected
+components.  :class:`LbpCascade` is the cascade's host-side numpy data, shared
+with the JAX package through :func:`lbp_cascade_from_arrays`;
+:func:`keypoints_from_arrays` and :func:`blobs_from_arrays` take a keypoint or
+blob table across the same way.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["Keypoints", "LbpCascade", "Matches", "Point", "Rect", "Rects", "as_image",
-           "is_batched", "keypoints_from_arrays", "lbp_cascade_from_arrays"]
+__all__ = ["Blobs", "Keypoints", "LbpCascade", "Matches", "Point", "Rect", "Rects", "as_image",
+           "as_tensor", "blobs_from_arrays", "host_arrays_to", "host_device", "is_batched",
+           "keypoints_from_arrays", "lbp_cascade_from_arrays"]
 
 
 class Rect(NamedTuple):
@@ -82,6 +88,37 @@ class Matches(NamedTuple):
     idx1: torch.Tensor
     idx2: torch.Tensor
     distance: torch.Tensor
+
+
+class Blobs(NamedTuple):
+    """Fixed-capacity blob table — ``gs_blob[]`` (grayskull.h:29-34) as struct-of-arrays.
+
+    Every field is a ``torch.int32`` tensor: ``n`` is the valid count (``()``
+    for one frame, ``(N,)`` for a batch); ``label``, ``area`` and the fields of
+    ``box`` (:class:`Rect`) and ``centroid`` (:class:`Point`) are ``(cap,)`` or
+    ``(N, cap)``, in the reference's compaction order, with rows past ``n`` set
+    to 0.
+    """
+
+    n: torch.Tensor
+    label: torch.Tensor
+    area: torch.Tensor
+    box: Rect
+    centroid: Point
+
+
+def blobs_from_arrays(obj) -> Blobs:
+    """A port :class:`Blobs` from any object with the blob table's fields.
+
+    ``obj`` may be a ``grayskull_tpu.core.Blobs`` (of numpy or JAX arrays);
+    each field is copied into an int32 CPU tensor, so the two packages' tables
+    compare field by field.
+    """
+    def t(v):
+        return torch.from_numpy(np.array(v, np.int32))
+
+    return Blobs(t(obj.n), t(obj.label), t(obj.area), Rect(*(t(v) for v in obj.box)),
+                 Point(*(t(v) for v in obj.centroid)))
 
 
 _KEYPOINT_DTYPES = {"n": np.int32, "x": np.int32, "y": np.int32, "response": np.int32,
@@ -180,15 +217,52 @@ def lbp_cascade_from_arrays(obj) -> LbpCascade:
     return LbpCascade(window_w=int(get("window_w")), window_h=int(get("window_h")), **arrays)
 
 
+_host_device = contextvars.ContextVar("host_device", default=None)
+
+
+@contextlib.contextmanager
+def host_arrays_to(device):
+    """Within the block, host arrays given to the port go to ``device``.
+
+    ``host_arrays_to("cpu")`` runs entry points fed numpy on the CPU (the
+    plain versions); ``host_arrays_to(None)`` restores the default, the CUDA
+    device.  Tensors are never moved: a CPU tensor always runs on the CPU.
+    """
+    token = _host_device.set(None if device is None else torch.device(device))
+    try:
+        yield
+    finally:
+        _host_device.reset(token)
+
+
+def host_device() -> torch.device:
+    """Where host arrays go: the current CUDA device unless :func:`host_arrays_to` says else."""
+    device = _host_device.get()
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "grayskull_tpu_torch sends host arrays to the CUDA device and found none; pass a "
+            "CPU tensor, or call inside `with grayskull_tpu_torch.core.host_arrays_to('cpu'):`, "
+            "to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A tensor stays where it is; a host array or scalar goes to :func:`host_device`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()
+    return torch.as_tensor(x, device=host_device())
+
+
 def as_image(x) -> torch.Tensor:
     """Coerce input to a uint8 image tensor of shape (H, W) or (N, H, W).
 
-    A numpy array becomes a CPU tensor; a tensor stays on its device.
+    A tensor stays on its device; a numpy array goes to :func:`host_device`.
     """
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x if x.flags.writeable else x.copy())
-    elif not isinstance(x, torch.Tensor):
-        x = torch.as_tensor(x)
+    x = as_tensor(x)
     if x.dtype != torch.uint8:
         raise TypeError(f"grayskull images are uint8, got {x.dtype}")
     if x.ndim not in (2, 3):

@@ -9,6 +9,8 @@
 * :mod:`.fast` — K6 ``fast`` (FAST-9 score map, 3x3 NMS, packed scan-order keys)
 * :mod:`.patches` — K7 ``orb_moments`` (disc moments, a warp per keypoint) and
   K8 ``orb_brief`` (rBRIEF words, a ballot per word)
+* :mod:`.ccl` — K9 ``ccl`` (4-connected component minima by union-find)
+* :mod:`.warp` — K10 ``quad_warp`` (the bilinear quad warp, a thread per page pixel)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -16,12 +18,15 @@ version for a CPU tensor.  :func:`launch_counts` reads how often each kernel was
 launched; :func:`reset_launch_counts` sets every count to 0.
 """
 
+from . import ccl as _ccl_mod
 from . import fast as _fast_mod
 from . import integral as _integral_mod
 from . import lbp as _lbp_mod
 from . import otsu as _otsu_mod
 from . import patches as _patches_mod
 from . import preproc as _preproc_mod
+from . import warp as _warp_mod
+from .ccl import ccl, ccl_plain  # noqa: F401
 from .fast import fast, fast_plain  # noqa: F401
 from .integral import integral, integral_plain  # noqa: F401
 from .lbp import lbp_eval_scale, lbp_eval_scale_plain  # noqa: F401
@@ -30,10 +35,13 @@ from .patches import (extract_patches_plain, orb_brief, orb_brief_plain,  # noqa
                       orb_moments, orb_moments_plain)
 from .preproc import (blur_hist, blur_hist_plain, frame_histograms,  # noqa: F401
                       sobel_plain, threshold_sobel, threshold_sobel_plain)
+from .warp import quad_warp, quad_warp_plain  # noqa: F401
 
 __all__ = [
     "blur_hist",
     "blur_hist_plain",
+    "ccl",
+    "ccl_plain",
     "extract_patches_plain",
     "fast",
     "fast_plain",
@@ -49,6 +57,8 @@ __all__ = [
     "orb_moments_plain",
     "otsu",
     "otsu_plain",
+    "quad_warp",
+    "quad_warp_plain",
     "reset_launch_counts",
     "sobel_plain",
     "threshold_sobel",
@@ -56,7 +66,8 @@ __all__ = [
 ]
 
 _COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
-             _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches)
+             _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches, _ccl_mod.launches,
+             _warp_mod.launches)
 
 
 def launch_counts() -> dict:

@@ -13,8 +13,8 @@ reused.  It is written to a temporary file first and moved into place with
 :func:`os.replace`, so a second process never loads a half-written library.
 
 ``-fmad=false`` keeps ``a*b+c`` as two rounded operations everywhere: the Otsu
-sweep and the rBRIEF rotation must round each float operation as the C
-reference does.
+sweep, the rBRIEF rotation and the quad warp must round each float operation
+as the C reference does.
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "gs_fast": (_PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
     "gs_orb_moments": (*(_PTR,) * 5, *(_INT,) * 5, _PTR),
     "gs_orb_brief": (*(_PTR,) * 7, *(_INT,) * 4, _PTR),
+    "gs_ccl": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "gs_quad_warp": (_PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
 }
 
 _lock = threading.Lock()

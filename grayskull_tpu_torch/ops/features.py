@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import Keypoints, Matches, as_image
+from ..core import Keypoints, Matches, as_image, as_tensor
 from ..kernels.fast import fast as fast_kernel
 from ..kernels.fast import fast_plain
 from ..kernels.integral import u32_to_int64
@@ -227,7 +227,7 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
 
 def _descriptors(d) -> torch.Tensor:
     if isinstance(d, np.ndarray):
-        d = torch.from_numpy(np.ascontiguousarray(d, np.uint32))
+        d = as_tensor(np.ascontiguousarray(d, np.uint32))
     return u32_to_int64(d)
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import as_image
+from ..core import as_image, as_tensor
 from ..kernels.otsu import otsu
 from ..kernels.preproc import frame_histograms
 
@@ -27,7 +27,7 @@ def histogram(img) -> torch.Tensor:
 
 def otsu_from_histogram(hist, total) -> torch.Tensor:
     """Otsu sweep over histogram(s) (..., 256) with ``total`` pixels each -> uint8 (...)."""
-    hist = torch.as_tensor(hist)
+    hist = as_tensor(hist)
     if hist.shape[-1:] != (256,):
         raise ValueError(f"expected (..., 256) histograms, got {tuple(hist.shape)}")
     flat = hist.reshape(-1, 256).to(torch.int32).contiguous()

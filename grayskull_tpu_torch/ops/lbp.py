@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from ..core import Rects
+from ..core import Rects, as_tensor
 from ..kernels import _build
 from ..kernels.lbp import _device_tables, lbp_eval_scale, lbp_eval_scale_plain
 
@@ -104,7 +104,7 @@ def _emit_rects(hits, plan, step: int, cap: int) -> Rects:
 
 def _as_integral(ii) -> torch.Tensor:
     if isinstance(ii, np.ndarray):
-        ii = torch.from_numpy(np.ascontiguousarray(ii))
+        ii = as_tensor(np.ascontiguousarray(ii))
     if ii.dtype != torch.uint32:
         raise TypeError(f"expected a uint32 integral image, got {ii.dtype}")
     if ii.ndim not in (2, 3):
@@ -118,7 +118,7 @@ def lbp_detect(cascade, ii, max_rects: int, scale_factor=1.2, min_scale=1.0, max
     (grayskull.h:815-835).
 
     ``ii`` is the uint32 integral image, (H, W) or batched (N, H, W) (a numpy
-    array becomes a CPU tensor).  Detections come back as fixed-capacity
+    array goes to the CUDA device, as :func:`~grayskull_tpu_torch.core.as_image` says).  Detections come back as fixed-capacity
     :class:`Rects` tables (a leading batch dim on every field for batched
     input) in the reference's (scale, y, x) order with its ``max_rects`` cap.
     ``step`` is the window stride, any ``step >= 1``.  ``force_reference=True``

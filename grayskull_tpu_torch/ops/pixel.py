@@ -3,7 +3,7 @@
 ``grayskull_tpu.ops.pixel``.
 
 Each takes a uint8 ``(H, W)`` or ``(N, H, W)`` tensor (or numpy array, which
-becomes a CPU tensor) and returns the same layout on the same device.  ``blur``
+goes to the CUDA device) and returns the same layout on the same device.  ``blur``
 and ``sobel`` launch the port's kernels on a CUDA tensor and run their plain
 versions on a CPU tensor; ``threshold`` and ``downsample`` are plain PyTorch
 everywhere, as the JAX package leaves them to XLA.

@@ -7,6 +7,9 @@ JAX, so it also runs where only PyTorch is installed::
 
 Every output is an integer or a bool (angles are compared by their bits) and
 the Otsu sweep is bit-exact, so the tolerance is 0.
+
+``host_arrays_on_cpu`` is the autouse fixture of every ``tests/test_torch_*.py``
+file (the others import it): numpy inputs to the port run on the CPU there.
 """
 
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch import libm32
-from grayskull_tpu_torch.core import LbpCascade
+from grayskull_tpu_torch.core import LbpCascade, host_arrays_to
 from grayskull_tpu_torch.ops.lbp import _grid_plan
 
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
@@ -68,6 +71,13 @@ def synthetic_cascade():
     )
 
 
+@pytest.fixture(autouse=True)
+def host_arrays_on_cpu():
+    """Host arrays handed to the port go to the CPU for the test's duration."""
+    with host_arrays_to("cpu"):
+        yield
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -115,7 +125,8 @@ def test_preprocess_launches_every_kernel_on_card(cuda_device):
     out = gt.preprocess(imgs)
     counts = K.launch_counts()
     assert counts == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 1, "integral": 0,
-                      "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0, "orb_brief": 0}
+                      "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0, "orb_brief": 0,
+                      "ccl": 0, "quad_warp": 0}
     ref = gt.preprocess(imgs, force_reference=True)
     assert K.launch_counts() == counts
     for a, b in zip(out, ref):
@@ -186,7 +197,7 @@ def test_detect_faces_launches_its_kernels_on_card(cuda_device):
     nscales = len(_grid_plan(gt.load_frontalface(), 128, 128, 1.2, 1.0, 4.0, 2))
     assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0,
                                  "integral": 1, "lbp_eval_scale": nscales, "fast": 0,
-                                 "orb_moments": 0, "orb_brief": 0}
+                                 "orb_moments": 0, "orb_brief": 0, "ccl": 0, "quad_warp": 0}
     ref = gt.detect_faces(frames, step=2, force_reference=True)
     assert K.launch_counts()["lbp_eval_scale"] == nscales
     on_cpu = gt.detect_faces(frames.cpu(), step=2)
@@ -295,3 +306,90 @@ def test_orb_extract_on_card_matches_cpu_exact_host(cuda_device):
     for got, want in zip((tk, sk, m), ck):
         for a, b in zip(_bits_of(got), _bits_of(want)):
             assert torch.equal(a.cpu(), b)
+
+
+def snake():
+    """A snake zigzagging between 8-row strips (``tests/test_blobs_contour.py:427``)."""
+    sn = np.zeros((16, 128), np.uint8)
+    for i, x in enumerate(range(0, 128, 8)):
+        sn[:, x] = 255
+        sn[15 if i % 2 == 0 else 0, x: x + 9] = 255
+    return sn
+
+
+def spiral(h, w, gap=4):
+    """A one-arm rectangular spiral whose minimum must flow down and up
+    repeatedly (``tests/test_blobs_contour.py:440-450``)."""
+    sp = np.zeros((h, w), np.uint8)
+    top, bot, lef, rig = 0, h - 1, 0, w - 1
+    while top <= bot and lef <= rig:
+        sp[top, lef:rig + 1] = 255
+        sp[top:bot + 1, rig] = 255
+        sp[bot, lef:rig + 1] = 255
+        sp[top:bot + 1, lef] = 255
+        top += gap
+        bot -= gap
+        lef += gap
+        rig -= gap
+        if lef <= rig:
+            sp[top - gap + 1:top + 1, lef] = 255
+    return sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 4096), (1, 4096, 1), (1, 7, 8), (2, 17, 129),
+                                   (3, 768, 1024)])
+def test_ccl_matches_plain_on_card(cuda_device, shape):
+    rng = np.random.default_rng(50)
+    for density in (0.3, 0.55, 0.6):
+        imgs = torch.from_numpy(((rng.random(shape) < density) * 255).astype(np.uint8))
+        got = K.ccl(imgs.to(cuda_device))
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.cpu(), K.ccl_plain(imgs)), density
+
+
+@pytest.mark.cuda
+def test_ccl_spiral_and_full_frames_on_card(cuda_device):
+    frames = torch.from_numpy(np.stack([spiral(512, 512), np.full((512, 512), 255, np.uint8),
+                                        np.zeros((512, 512), np.uint8)])).to(cuda_device)
+    got = K.ccl(frames)
+    assert torch.equal(got, K.ccl_plain(frames))
+    assert int(got[1].max()) == 0 and int(got[2].min()) == -1
+
+
+@pytest.mark.cuda
+def test_quad_warp_matches_plain_on_card(cuda_device):
+    src = _frames((2, 300, 260), 51, cuda_device)
+    quads = [[[20, 15], [240, 30], [230, 280], [10, 290]], [[0, 0], [259, 0], [259, 299], [0, 299]],
+             [[-50, -40], [400, -10], [300, 500], [-30, 350]], [[200, 10], [10, 20], [30, 250], [250, 270]]]
+    for q in quads:
+        c = torch.tensor([q, q[::-1]], dtype=torch.int32, device=cuda_device)
+        for size in ((1000, 800), (347, 200), (1, 10), (10, 1), (1, 1), (37, 3)):
+            got = K.quad_warp(src, c, size)
+            assert got.is_cuda and torch.equal(got, K.quad_warp_plain(src, c, size)), (q, size)
+
+
+@pytest.mark.cuda
+def test_scan_launches_its_kernels_on_card(cuda_device):
+    doc = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/document.pgm")
+    frames = torch.from_numpy(np.stack([np.roll(doc, 3 * i, axis=1) for i in range(3)]))
+    K.reset_launch_counts()
+    pages, corners = gt.scan(frames.to(cuda_device))
+    assert K.launch_counts() == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 0, "integral": 0,
+                                 "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0,
+                                 "orb_brief": 0, "ccl": 1, "quad_warp": 1}
+    ref = gt.scan(frames.to(cuda_device), force_reference=True)
+    on_cpu = gt.scan(frames)
+    for a, b, c in zip((pages, corners), ref, on_cpu):
+        assert a.is_cuda and torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_host_arrays_go_to_the_card(cuda_device):
+    img = np.random.default_rng(52).integers(0, 256, (2, 40, 56), dtype=np.uint8)
+    with host_arrays_to(None):
+        assert gt.as_image(img).is_cuda
+        out = gt.blur(img, 1)
+        pages, corners = gt.scan(img, out_size=(20, 10))
+    assert out.is_cuda and pages.is_cuda and corners.is_cuda
+    assert torch.equal(out.cpu(), gt.blur(img, 1))

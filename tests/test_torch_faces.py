@@ -27,6 +27,7 @@ from grayskull_tpu.ops.lbp import lbp_window as jax_lbp_window
 from grayskull_tpu.ops.lbp import scale_ladder as jax_scale_ladder
 from grayskull_tpu.pipelines.faces import detect_faces as jax_detect_faces
 from grayskull_tpu_torch.core import lbp_cascade_from_arrays
+from tests.test_torch_cuda import host_arrays_on_cpu  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "tests", "golden", "testdata")
@@ -253,7 +254,8 @@ def test_faces_import_leaves_jax_out():
         "import sys",
         "import numpy as np",
         "import grayskull_tpu_torch as g",
-        "r = g.detect_faces(np.zeros((30, 40), np.uint8), step=4)",
+        "with g.core.host_arrays_to('cpu'):",
+        "    r = g.detect_faces(np.zeros((30, 40), np.uint8), step=4)",
         "assert int(r.n) == 0",
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'grayskull_tpu')]",
         "sys.exit(f'imported: {bad}' if bad else 0)",

@@ -28,7 +28,8 @@ from grayskull_tpu.ops.lbp import _eval_windows_jit
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.kernels.lbp import scale_tables
-from tests.test_torch_cuda import otsu_edge_histograms, synthetic_cascade
+from tests.test_torch_cuda import (host_arrays_on_cpu, otsu_edge_histograms,  # noqa: F401
+                                   synthetic_cascade)
 
 STENCIL_SHAPES = [(1, 13, 136), (1, 97, 200), (1, 7, 8), (1, 17, 129)]
 
@@ -107,9 +108,11 @@ def test_plain_runs_on_cpu_without_counting():
     K.fast(imgs, 20)
     K.orb_moments(imgs, xy, xy)
     K.orb_brief(imgs, xy, xy, torch.zeros((1, 3)), torch.ones((1, 3)))
+    K.ccl(imgs)
+    K.quad_warp(imgs, torch.zeros((1, 4, 2), dtype=torch.int32), (3, 4))
     assert K.launch_counts() == before
     assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale",
-                           "fast", "orb_moments", "orb_brief"}
+                           "fast", "orb_moments", "orb_brief", "ccl", "quad_warp"}
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
@@ -219,7 +222,7 @@ def test_wrappers_reject_bad_input():
 def test_build_command_targets_hopper_without_fma(tmp_path):
     srcs = _build.sources()
     assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu", "fast.cu",
-                                      "patches.cu"}
+                                      "patches.cu", "ccl.cu", "warp.cu"}
     for src in srcs:  # one nvcc per source, started together
         cmd = _build.compile_command(src, tmp_path / f"{src.stem}.o")
         assert cmd[0].endswith("nvcc")
@@ -239,7 +242,8 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
     assert _build._library_path(srcs[:1]) != _build._library_path(srcs)
     assert set(_build._SIGNATURES) == {"gs_blur_hist", "gs_threshold_sobel", "gs_otsu",
                                        "gs_integral", "gs_lbp_eval_scale", "gs_fast",
-                                       "gs_orb_moments", "gs_orb_brief"}
+                                       "gs_orb_moments", "gs_orb_brief", "gs_ccl",
+                                       "gs_quad_warp"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

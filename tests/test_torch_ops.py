@@ -14,7 +14,7 @@ import torch
 import grayskull_tpu as gs
 import grayskull_tpu_torch as gt
 from grayskull_tpu.ops.histogram import otsu_from_histogram as jax_otsu_from_histogram
-from tests.test_torch_cuda import otsu_edge_histograms
+from tests.test_torch_cuda import host_arrays_on_cpu, otsu_edge_histograms  # noqa: F401
 
 SHAPES = [(1, 64, 96), (3, 97, 200), (2, 7, 8), (2, 17, 129)]
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "goldens.npz")

@@ -35,6 +35,7 @@ from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch import libm32
 from grayskull_tpu_torch.core import keypoints_from_arrays
 from grayskull_tpu_torch.ops.features import _select_candidates
+from tests.test_torch_cuda import host_arrays_on_cpu  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "tests", "golden", "testdata")

@@ -18,6 +18,7 @@ import grayskull_tpu as gs
 import grayskull_tpu_torch as gt
 from grayskull_tpu import libm32 as jax_libm32
 from grayskull_tpu_torch import libm32
+from tests.test_torch_cuda import host_arrays_on_cpu  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "tests", "golden", "testdata")
@@ -115,7 +116,8 @@ def test_orb_runs_without_jax():
         "import numpy as np",
         "import grayskull_tpu_torch as g",
         "img = np.random.default_rng(0).integers(0, 256, (96, 128), dtype=np.uint8)",
-        "tk, sk, m = g.track(img, np.roll(img, 3, axis=1), max_kps=200)",
+        "with g.core.host_arrays_to('cpu'):",
+        "    tk, sk, m = g.track(img, np.roll(img, 3, axis=1), max_kps=200)",
         "assert int(tk.n) > 0 and int(m.n) > 0",
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'grayskull_tpu')]",
         "sys.exit(f'imported: {bad}' if bad else 0)",
