@@ -28,10 +28,19 @@ counts set to 0 just before it and read just after:
   blobs -> the largest blob's corners -> a 1000x800 page, on 8 frames of
   ``document.pgm`` rolled 3*i columns and on one frame), checked against the
   plain path on the card, the plain path on the CPU for two frames, and the
-  goldens ``blobs_*``, ``multiblob_*`` and ``persp``.
+  goldens ``blobs_*``, ``multiblob_*`` and ``persp``;
+* the dense ops (BASELINE config #2, ``erode(dilate(adaptive_threshold(x,
+  15, 5)))`` on 256 frames of ``receipt.pgm`` rolled 5*i columns, and the
+  ten dense goldens through ``adaptive_threshold``, ``erode``, ``dilate``, the
+  four filter presets, ``resize``, ``resize_nn`` and ``crop``), checked
+  against the plain path on the card, the CPU for frames 0 and 255, and the
+  goldens;
+* the nanomagick CLI (``grayskull_tpu_torch.cli.main``), each of its 14
+  commands on the card, byte for byte against the same command on the CPU.
 
-Then it times all four with CUDA events and profiles the scanner
-(``torch.profiler``: device time by kernel, idle share, host enqueue time).
+Then it times the paths with CUDA events, profiles the scanner, config #2 and
+the resize (``torch.profiler``: device time by kernel, idle share, host enqueue
+time) and takes K7's and K8's device time from the profiler.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
@@ -40,10 +49,13 @@ time) and the card's ``nvidia-smi`` name and power limit, and the last line is
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -94,6 +106,14 @@ KERNELS = {
     "quad_warp": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/warp.cu",
                   "replaces": "grayskull_tpu/kernels/warp.py:163",
                   "also_replaces": "grayskull_tpu/kernels/warp.py:98"},
+    "adaptive": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/preproc.cu",
+                 "replaces": "grayskull_tpu/kernels/preproc.py:515"},
+    "morph": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/stencil3.cu",
+              "replaces": "grayskull_tpu/kernels/preproc.py:616"},
+    "filter3": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/stencil3.cu",
+                "replaces": "grayskull_tpu/kernels/preproc.py:723"},
+    "resize": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/resize.cu",
+               "replaces": "grayskull_tpu/kernels/resize.py:217"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
@@ -117,6 +137,32 @@ WARP_QUADS = {  # on document.pgm (768 wide, 1024 high), tests/test_integral_tem
     "identity": [[0, 0], [767, 0], [767, 1023], [0, 1023]],
     "outside": [[-60, -45], [900, -10], [820, 1200], [-30, 1100]],
 }
+DENSE_KERNELS = ("adaptive", "morph")
+DENSE_N, DENSE_R, DENSE_C = 256, 15, 5
+ADAPTIVE_RADII = (1, 2, 6, 7, 15, 16, 40)
+ADAPTIVE_CS = (-3, 0, 5, 40)
+FILTER_TAPS = {  # name: (taps, norm): the presets, negative sums, taps past int8
+    "sharpen": (((0, -1, 0), (-1, 5, -1), (0, -1, 0)), 1),
+    "emboss": (((-2, -1, 0), (-1, 1, 1), (0, 1, 2)), 1),
+    "blur_box": (((1, 1, 1), (1, 1, 1), (1, 1, 1)), 9),
+    "blur_gaussian": (((1, 2, 1), (2, 4, 2), (1, 2, 1)), 16),
+    "sobel_y norm 1": (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 1),
+    "sobel_y norm 7": (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 7),
+    "wide": (((300, -1000, 5), (0, 70000, 0), (1, 2, -99999)), 3),
+}
+RESIZE_CASES = [((1024, 1024), (480, 640)), ((480, 640), (768, 1024)), ((480, 640), (347, 200)),
+                ((200, 256), (200, 256)), ((816, 612), (100, 40)), ((1, 1), (5, 7)),
+                ((7, 1), (3, 9))]
+RESIZE_N, RESIZE_TO = 256, (480, 640)
+CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
+    (["identify"], "lena", ()), (["view"], "lena", ()),
+    (["resize", "300", "170"], "lena", ("resize",)), (["crop", "20", "10", "40", "30"], "lena", ()),
+    (["blur", "2"], "lena", ("blur_hist",)), (["threshold", "otsu"], "lena", ("otsu",)),
+    (["adaptive", "15", "5"], "receipt", ("adaptive",)), (["sobel"], "lena", ("threshold_sobel",)),
+    (["morph", "dilate", "2"], "receipt", ("morph",)), (["blobs", "50"], "lena", ("ccl",)),
+    (["scan"], "document", SCAN_KERNELS), (["keypoints", "50", "20"], "lena", ("fast",)),
+    (["orb", "aruco"], "aruco", ORB_KERNELS), (["faces", "2"], "lena", FACES_KERNELS),
+]
 # the least time of a kernel: bytes over the memory rate or operations over the
 # float32 rate, whichever is larger (NVIDIA's H100 SXM data sheet, 700 W; the
 # integer operations are counted at the same rate)
@@ -947,13 +993,234 @@ def phase_scan_timing(batch, corners, card):
     return times
 
 
+def receipt_batch(n):
+    """``benchmarks/bench_all.py:169-175``'s frames: receipt.pgm rolled 5*i columns."""
+    rec = read_pgm(os.path.join(HERE, "tests", "golden", "testdata", "receipt.pgm"))
+    if rec is None:
+        raise FileNotFoundError("tests/golden/testdata/receipt.pgm")
+    return np.stack([np.roll(rec, 5 * i, axis=1) for i in range(n)])
+
+
+def adaptive_morph(frames):
+    """BASELINE config #2 (``bench_all.py:177-178``): adaptive threshold, dilate, erode."""
+    return gt.erode(gt.dilate(gt.adaptive_threshold(frames, DENSE_R, DENSE_C)))
+
+
+def adaptive_morph_plain(frames):
+    binary = K.adaptive_plain(frames, DENSE_R, DENSE_C)
+    return K.morph_plain(K.morph_plain(binary, "dilate"), "erode")
+
+
+def phase_dense_kernels(chk, rng, dev):
+    for shape in SHAPES:
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        for r in ADAPTIVE_RADII:
+            for c in ADAPTIVE_CS:
+                chk.same("adaptive", K.adaptive(imgs, r, c), K.adaptive_plain(imgs, r, c),
+                         f"{shape} r={r} c={c}")
+        for op in ("erode", "dilate"):
+            chk.same("morph", K.morph(imgs, op), K.morph_plain(imgs, op), f"{shape} {op}")
+        for name, (taps, norm) in FILTER_TAPS.items():
+            chk.same("filter3", K.filter3(imgs, taps, norm), K.filter3_plain(imgs, taps, norm),
+                     f"{shape} {name}")
+        torch.cuda.synchronize()
+    for src, dst in RESIZE_CASES:
+        imgs = torch.from_numpy(rng.integers(0, 256, (2, *src), dtype=np.uint8)).to(dev)
+        chk.same("resize", K.resize(imgs, dst), K.resize_plain(imgs, dst), f"{src}->{dst}")
+    torch.cuda.synchronize()
+    dense = ("adaptive", "morph", "filter3", "resize")
+    emit("dense_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES],
+         radii=list(ADAPTIVE_RADII), offsets=list(ADAPTIVE_CS), taps=sorted(FILTER_TAPS),
+         resize_cases=[[list(a), list(b)] for a, b in RESIZE_CASES],
+         checks={k: chk.checks[k] for k in dense}, max_abs_err={k: chk.max_err[k] for k in dense})
+
+
+def dense_goldens(img):
+    """The ten dense goldens' ops on one frame."""
+    return {
+        "adaptive_15_5": gt.adaptive_threshold(img, 15, 5), "erode": gt.erode(img),
+        "dilate": gt.dilate(img), "sharpen": gt.sharpen(img), "emboss": gt.emboss(img),
+        "blur_box3": gt.blur_box(img), "blur_gaussian3": gt.blur_gaussian(img),
+        "resize_100_40": gt.resize(img, (100, 40)), "resize_nn_7_150": gt.resize_nn(img, (7, 150)),
+        "crop_20_10_40_30": gt.crop(img, gt.Rect(20, 10, 40, 30)),
+    }
+
+
+def phase_dense_path(chk, dev):
+    host = receipt_batch(DENSE_N)
+    batch = torch.from_numpy(host).to(dev)
+    out, l_path = _launched(DENSE_KERNELS, adaptive_morph, batch)
+    if l_path["adaptive"] != 1 or l_path["morph"] != 2:
+        raise AssertionError(f"config #2 launched {l_path}, not adaptive 1 and morph 2")
+    if tuple(out.shape) != tuple(batch.shape) or out.dtype != torch.uint8:
+        raise AssertionError(f"config #2: {tuple(out.shape)} {out.dtype}")
+    ref = adaptive_morph_plain(batch)
+    chk.same("adaptive", out, ref, "config #2 vs plain path")
+    rows = [0, DENSE_N - 1]
+    on_cpu = adaptive_morph(torch.from_numpy(host[rows]))
+    if not torch.equal(out[rows].cpu(), on_cpu):
+        raise AssertionError("config #2: card differs from the plain path on the CPU")
+    white = int((out == 255).sum())
+    if not 0 < white < out.numel():
+        raise AssertionError(f"config #2: {white} white pixels of {out.numel()}")
+
+    g = np.load(os.path.join(HERE, "tests", "golden", "goldens.npz"))
+    img = torch.from_numpy(g["input"]).to(dev)
+    got, l_goldens = _launched(("adaptive", "morph", "filter3", "resize"), dense_goldens, img)
+    for name, value in got.items():
+        if not np.array_equal(value.cpu().numpy(), g[name]):
+            raise AssertionError(f"golden {name} differs on the card")
+    launches = {name: l_path[name] + l_goldens[name] for name in KERNELS}
+    emit("dense_path", ok=True, frames=DENSE_N, height=batch.shape[1], width=batch.shape[2],
+         radius=DENSE_R, c=DENSE_C, launches=launches, launches_config2=l_path,
+         launches_goldens=l_goldens, white_fraction=white / out.numel(), cpu_frames_checked=rows,
+         goldens=sorted(got))
+    return batch, out, launches
+
+
+def device_ms(fn, calls=20):
+    """Device time of one call of ``fn()`` from ``torch.profiler`` (device events
+    only, summed over the kernels it launches), after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / calls
+
+
+def phase_dense_timing(batch, binary, card):
+    t_path = timeit(adaptive_morph, batch)
+    t_ref = timeit(adaptive_morph_plain, batch, iters=3)
+    big = torch.from_numpy(lena_batch(RESIZE_N, MAIN_H, MAIN_W)).to(batch.device)
+    t_resize = timeit(gt.resize, big, RESIZE_TO)
+    t_resize_ref = timeit(K.resize_plain, big, RESIZE_TO, iters=3)
+    emit("dense_timing", card=card, metric="adaptive_morph_816x612_fps", value=DENSE_N / t_path,
+         unit="frames/sec/card", frames=DENSE_N, ms_per_batch=t_path * 1e3,
+         plain_path_fps=DENSE_N / t_ref, plain_path_ms_per_batch=t_ref * 1e3,
+         op_resize_640x480_1MP_fps=RESIZE_N / t_resize, resize_ms_per_batch=t_resize * 1e3,
+         plain_resize_fps=RESIZE_N / t_resize_ref,
+         windows="median of 3 windows of 20 calls (plain: 3 calls) after 2 warm-up calls")
+    F = torch.nn.functional
+    px, big_px = batch.numel(), big.numel()
+    out_px = RESIZE_N * RESIZE_TO[0] * RESIZE_TO[1]
+    gauss, gnorm = FILTER_TAPS["blur_gaussian"]
+    half = binary.to(torch.float16)[:, None]
+    pool_ms = timeit(F.max_pool2d, half, 3, 1, 1) * 1e3
+    del half
+    bigf = big.to(torch.float32)[:, None]
+    weight = torch.tensor(gauss, dtype=torch.float32, device=big.device).view(1, 1, 3, 3) / gnorm
+    conv_ms = timeit(F.conv2d, bigf, weight, None, 1, 1) * 1e3
+    interp_ms = timeit(F.interpolate, bigf, size=RESIZE_TO, mode="bilinear",
+                       align_corners=False) * 1e3
+    del bigf
+    # per pixel: K11 4 running-sum adds, a division, a subtraction, a compare, a
+    # select; K12 8 compares; K13 9 multiplies, 8 adds, a division, a clamp; K14
+    # about 40 float operations an output pixel (two divisions among them)
+    times = {
+        "adaptive": kernel_entry(
+            timeit(K.adaptive, batch, DENSE_R, DENSE_C) * 1e3,
+            timeit(K.adaptive_plain, batch, DENSE_R, DENSE_C, iters=3) * 1e3, 2 * px, 8 * px,
+            None, "none: no one call gives a clipped-mean threshold"),
+        "morph": kernel_entry(
+            timeit(K.morph, binary, "dilate") * 1e3,
+            timeit(K.morph_plain, binary, "dilate", iters=3) * 1e3, 2 * px, 8 * px, pool_ms,
+            "max_pool2d(3, 1, 1) of the float16 frames (dilate; erode is -max_pool2d(-x))"),
+        "filter3": kernel_entry(
+            timeit(K.filter3, big, gauss, gnorm) * 1e3,
+            timeit(K.filter3_plain, big, gauss, gnorm, iters=3) * 1e3, 2 * big_px, 20 * big_px,
+            conv_ms, "conv2d(padding=1) of the float32 frames: no unsigned division, "
+                     "cuDNN's default TF32"),
+        "resize": kernel_entry(
+            timeit(K.resize, big, RESIZE_TO) * 1e3, t_resize_ref * 1e3, big_px + out_px,
+            40 * out_px, interp_ms,
+            "interpolate(bilinear, align_corners=False) of the float32 frames: not bit-exact"),
+    }
+    shapes = {"adaptive": batch.shape, "morph": binary.shape, "filter3": big.shape,
+              "resize": big.shape}
+    for name, entry in times.items():
+        emit("kernel_time", card=card, kernel=name, shape=list(shapes[name]), **entry,
+             **({"to": list(RESIZE_TO)} if name == "resize" else {}),
+             **({"taps": "blur_gaussian"} if name == "filter3" else {}))
+    emit("dense_profile", card=card, entry="config #2, 256 frames",
+         **profile_calls(adaptive_morph, batch))
+    emit("dense_profile", card=card, entry="resize 256 x 1 MP to 480x640",
+         **profile_calls(gt.resize, big, RESIZE_TO))
+    emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return times
+
+
+def phase_orb_device_time(frames, times, card):
+    """K7's and K8's device time per call from the profiler: their CUDA-event
+    times over back-to-back calls read the host's launch rate."""
+    batch = frames[0]
+    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
+    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
+    sin, cos = libm32.sinf(kps.angle), libm32.cosf_like_reference(kps.angle)
+    dev = {"orb_moments": device_ms(lambda: K.orb_moments(batch, sx, sy)),
+           "orb_brief": device_ms(lambda: K.orb_brief(batch, sx, sy, sin, cos))}
+    for name, ms in dev.items():
+        times[name]["device_ms"] = ms
+    emit("orb_kernel_device_time", card=card, shape=[ORB_N, ORB_CAP], device_ms=dev,
+         event_ms={name: times[name]["ms"] for name in dev},
+         source="torch.profiler device events over 20 calls after a warm-up call")
+
+
+def phase_cli(dev):
+    from grayskull_tpu_torch import cli
+    from grayskull_tpu_torch.core import host_arrays_to
+
+    tdir = os.path.join(HERE, "tests", "golden", "testdata")
+    results, launches = {}, {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory(dir=HERE) as work:
+        for args, src, kernels in CLI_COMMANDS:
+            argv = [os.path.join(tdir, f"{a}.pgm") if a == "aruco" else a for a in args]
+            argv.append(os.path.join(tdir, f"{src}.pgm"))
+            has_out = args[0] not in ("identify", "view")
+            outs = []
+            for where in ("card", "cpu"):
+                out_path = os.path.join(work, f"{args[0]}_{where}.pgm")
+                buf = io.StringIO()
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+                with contextlib.redirect_stdout(buf), host_arrays_to(None if where == "card"
+                                                                      else "cpu"):
+                    rc = cli.main(["nanomagick", *argv, *([out_path] if has_out else [])])
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                if rc != 0:
+                    raise AssertionError(f"cli {args} on the {where} exited {rc}")
+                data = open(out_path, "rb").read() if has_out else b""
+                outs.append((buf.getvalue(), data, counts))
+            (card_stdout, card_pgm, card_counts), (cpu_stdout, cpu_pgm, cpu_counts) = outs
+            if card_stdout != cpu_stdout or card_pgm != cpu_pgm:
+                raise AssertionError(f"cli {args}: the card's output differs from the CPU's")
+            missing = [k for k in kernels if card_counts[k] < 1]
+            if missing or any(cpu_counts.values()):
+                raise AssertionError(f"cli {args}: card launched {card_counts}, cpu {cpu_counts}")
+            for name in KERNELS:
+                launches[name] += card_counts[name]
+            results[args[0] if args[0] not in results else " ".join(args)] = {
+                "bytes": len(card_pgm), "stdout_chars": len(card_stdout),
+                "launches": {k: v for k, v in card_counts.items() if v}}
+    emit("cli", ok=True, commands=len(results), byte_identical_with_cpu=True, results=results)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = card_line()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.library()
     emit("build", card=card, device=torch.cuda.get_device_name(0), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=time.perf_counter() - t0,
@@ -964,19 +1231,27 @@ def main():
     phase_faces_kernels(chk, np.random.default_rng(1), dev)
     phase_orb_kernels(chk, np.random.default_rng(2), dev)
     phase_scan_kernels(chk, np.random.default_rng(3), dev)
+    phase_dense_kernels(chk, np.random.default_rng(4), dev)
     batch, pre_launches = phase_main_path(chk, dev)
     faces_batch, faces_launches = phase_faces_path(chk, dev)
     orb_frames, orb_launches = phase_orb_path(chk, dev)
     scan_batch, scan_corners, scan_launches = phase_scan_path(chk, dev)
+    dense_batch, dense_binary, dense_launches = phase_dense_path(chk, dev)
+    cli_launches = phase_cli(dev)
     times = phase_timing(batch, card)
     del batch
     times.update(phase_faces_timing(faces_batch, card))
     times.update(phase_orb_timing(orb_frames, card))
+    phase_orb_device_time(orb_frames, times, card)
     times.update(phase_scan_timing(scan_batch, scan_corners, card))
+    del scan_batch, faces_batch, orb_frames
+    times.update(phase_dense_timing(dense_batch, dense_binary, card))
 
     # each path ran with the counts at 0 and launches only its own kernels
     launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]
-                + scan_launches[name] for name in KERNELS}
+                + scan_launches[name] + dense_launches[name] + cli_launches[name]
+                for name in KERNELS}
+    emit("elapsed", seconds=time.perf_counter() - t_start)
     summary = [{"name": name, **info, "launches": launches[name],
                 "max_abs_err": chk.max_err[name], **times[name]}
                for name, info in KERNELS.items()]

@@ -5,8 +5,9 @@ The same uint8 NHW convention, module layout and function names as
 hand-written Hopper kernels (``csrc/*.cu``, built with ``nvcc`` on first use), a
 CPU tensor their plain PyTorch versions; a numpy array goes to the CUDA device
 (:func:`core.host_arrays_to` asks for the CPU instead).  Outputs are bit-exact
-with the JAX package.  Four slices are ported, the preprocess main path, face
-detection, ORB and the document scanner::
+with the JAX package.  Five slices are ported: the preprocess main path, face
+detection, ORB, the document scanner and the rest of the dense pixel ops, with
+the nanomagick CLI (``python -m grayskull_tpu_torch.cli``) on top::
 
     import grayskull_tpu_torch as gs
     frames = gs.as_image(gs.io.read_pgm_batch(paths))   # on the card
@@ -20,41 +21,60 @@ detection, ORB and the document scanner::
     tmpl_kps, scene_kps, matches = gs.track(frames[0], frames[1])
     # blur(1) -> Otsu+10 -> blobs -> largest blob's corners -> 1000x800 page
     pages, corners = gs.scan(frames)
+    # adaptive threshold -> dilate -> erode (BASELINE config #2), bilinear resize
+    clean = gs.erode(gs.dilate(gs.adaptive_threshold(frames, 15, 5)))
+    small = gs.resize(frames, (480, 640))
 
 The package imports no JAX and builds nothing at import.
 """
 
-from . import cascade, core, io, kernels, libm32, ops, pipelines, profiling  # noqa: F401
+from . import cascade, core, io, kernels, libm32, ops, pipelines, profiling, structlog  # noqa: F401
 from .cascade import load_frontalface, load_opencv_xml  # noqa: F401
 from .core import (Blobs, Keypoints, LbpCascade, Matches, Point, Rect, Rects,  # noqa: F401
                    as_image, is_batched)
-from .ops import (blob_corners, blobs, blur, brief_descriptor, compute_orientation,  # noqa: F401
-                  downsample, fast, fast_scoremap, hamming_distance, histogram, integral,
-                  integral_sum, label_components, lbp_detect, lbp_warm_start, lbp_window,
-                  match_orb, orb_extract, otsu_from_histogram, otsu_threshold,
-                  perspective_correct, scale_ladder, sobel, threshold)
+from .ops import (BLUR_BOX_KERNEL, BLUR_GAUSSIAN_KERNEL, EMBOSS_KERNEL,  # noqa: F401
+                  SHARPEN_KERNEL, adaptive_threshold, blob_corners, blobs, blur, blur_box,
+                  blur_gaussian, brief_descriptor, compute_orientation, copy, crop, dilate,
+                  downsample, emboss, erode, fast, fast_scoremap, filter2d, hamming_distance,
+                  histogram, integral, integral_sum, label_components, lbp_detect,
+                  lbp_warm_start, lbp_window, match_orb, orb_extract, otsu_from_histogram,
+                  otsu_threshold, perspective_correct, resize, resize_nn, scale_ladder, sharpen,
+                  sobel, threshold)
 from .pipelines import (detect_faces, extract_pyramid_orb, preprocess,  # noqa: F401
                         preprocess_binarize, preprocess_reference, scan, track)
 
 __all__ = [
+    "BLUR_BOX_KERNEL",
+    "BLUR_GAUSSIAN_KERNEL",
     "Blobs",
+    "EMBOSS_KERNEL",
     "Keypoints",
     "LbpCascade",
     "Matches",
     "Point",
     "Rect",
     "Rects",
+    "SHARPEN_KERNEL",
+    "adaptive_threshold",
     "as_image",
     "blob_corners",
     "blobs",
     "blur",
+    "blur_box",
+    "blur_gaussian",
     "brief_descriptor",
     "compute_orientation",
+    "copy",
+    "crop",
     "detect_faces",
+    "dilate",
     "downsample",
+    "emboss",
+    "erode",
     "extract_pyramid_orb",
     "fast",
     "fast_scoremap",
+    "filter2d",
     "hamming_distance",
     "histogram",
     "integral",
@@ -74,8 +94,11 @@ __all__ = [
     "preprocess",
     "preprocess_binarize",
     "preprocess_reference",
+    "resize",
+    "resize_nn",
     "scale_ladder",
     "scan",
+    "sharpen",
     "sobel",
     "threshold",
     "track",

@@ -12,6 +12,11 @@
 //    :545).  With a threshold vector it binarizes `p > t[n] ? 255 : 0` (and
 //    optionally writes that map), then takes the interior Sobel magnitude
 //    min((|gx|+|gy|)/2, 255) with a zero 1-pixel border.
+// K11 gs_adaptive replaces adaptive_pallas (:515, body _adaptive_kernel :414),
+//    gs_adaptive_threshold: `src > (int)(sum / count) - c ? 255 : 0` with K1's
+//    clipped window sum (the same column-sum stage, as _adaptive_kernel shares
+//    _blur_block), an unsigned division, then an int32 subtraction and compare.
+//    No radius gate: any radius whose window sum fits int32, as K1.
 //
 // What bounds them: both are memory-bound.  Per pixel K1 reads 1 B and writes
 // 1 B (plus a few shared-memory atomics for the histogram); K2 reads 1 B and
@@ -45,6 +50,67 @@ constexpr int kSobelTileH = 32;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
 
+// One block's tile of a blur-shaped kernel: the frame, its tile_h x kBlurTileW
+// output rectangle and the tile's columns widened by r on each side (clipped).
+struct BlurTile {
+  int f, x0, y0, x1, y1, cx0, sw, rows, tw;
+  size_t base;
+};
+
+__device__ __forceinline__ BlurTile blur_tile(int h, int w, int r, int tile_h, int tiles_x,
+                                              int tiles_y) {
+  BlurTile t;
+  const int per_frame = tiles_x * tiles_y;
+  t.f = blockIdx.x / per_frame;
+  const int k = blockIdx.x - t.f * per_frame;
+  const int ty = k / tiles_x;
+  const int tx = k - ty * tiles_x;
+  t.x0 = tx * kBlurTileW;
+  t.y0 = ty * tile_h;
+  t.x1 = min(t.x0 + kBlurTileW, w);
+  t.y1 = min(t.y0 + tile_h, h);
+  t.cx0 = max(t.x0 - r, 0);
+  t.sw = min(t.x1 + r, w) - t.cx0;
+  t.rows = t.y1 - t.y0;
+  t.tw = t.x1 - t.x0;
+  t.base = static_cast<size_t>(t.f) * h * w;
+  return t;
+}
+
+// Vertical pass: one thread slides a clipped (2r+1)-row window down a column,
+// writing the tile's rows of column sums into shared memory (rows x sw ints).
+__device__ __forceinline__ void column_sums(const uint8_t* img, int* colsum, const BlurTile& t,
+                                            int h, int w, int r) {
+  for (int c = threadIdx.x; c < t.sw; c += blockDim.x) {
+    const int x = t.cx0 + c;
+    const int lo = max(t.y0 - r, 0);
+    const int hi = min(t.y0 + r, h - 1);
+    int s = 0;
+    for (int y = lo; y <= hi; ++y) s += img[static_cast<size_t>(y) * w + x];
+    for (int i = 0; i < t.rows; ++i) {
+      colsum[i * t.sw + c] = s;
+      const int y = t.y0 + i;
+      if (y + 1 + r <= h - 1) s += img[static_cast<size_t>(y + 1 + r) * w + x];
+      if (y - r >= 0) s -= img[static_cast<size_t>(y - r) * w + x];
+    }
+  }
+}
+
+// Horizontal pass at (i, x) of the tile: the clipped window sum over the column
+// sums, divided (unsigned, truncating) by the clipped window's pixel count.
+__device__ __forceinline__ unsigned window_mean(const int* colsum, const BlurTile& t, int i,
+                                                int x, int h, int w, int r) {
+  const int y = t.y0 + i;
+  const int lo = max(x - r, 0);
+  const int hi = min(x + r, w - 1);
+  const int* row = colsum + i * t.sw;
+  unsigned s = 0;
+  for (int c = lo; c <= hi; ++c) s += static_cast<unsigned>(row[c - t.cx0]);
+  const unsigned cy = static_cast<unsigned>(min(y + r, h - 1) - max(y - r, 0) + 1);
+  const unsigned cx = static_cast<unsigned>(hi - lo + 1);
+  return s / (cy * cx);
+}
+
 // Grid: one block per (frame, tile_y, tile_x), flattened into blockIdx.x.
 // Shared memory: 256 int histogram bins, then tile_h rows of vertical window
 // sums over the tile's columns widened by r on each side (clipped to the frame).
@@ -54,65 +120,50 @@ __global__ void blur_hist_kernel(const uint8_t* __restrict__ src, uint8_t* __res
   extern __shared__ __align__(16) unsigned char gs_smem[];
   int* shist = reinterpret_cast<int*>(gs_smem);
   int* colsum = shist + 256;
-  const int per_frame = tiles_x * tiles_y;
-  const int f = blockIdx.x / per_frame;
-  const int t = blockIdx.x - f * per_frame;
-  const int ty = t / tiles_x;
-  const int tx = t - ty * tiles_x;
-  const int x0 = tx * kBlurTileW;
-  const int y0 = ty * tile_h;
-  const int x1 = min(x0 + kBlurTileW, w);
-  const int y1 = min(y0 + tile_h, h);
-  const int cx0 = max(x0 - r, 0);
-  const int cx1 = min(x1 + r, w);
-  const int sw = cx1 - cx0;
-  const int rows = y1 - y0;
-  const int tw = x1 - x0;
-  const size_t base = static_cast<size_t>(f) * h * w;
-  const uint8_t* img = src + base;
+  const BlurTile t = blur_tile(h, w, r, tile_h, tiles_x, tiles_y);
 
   if (hist != nullptr) {
     for (int b = threadIdx.x; b < 256; b += blockDim.x) shist[b] = 0;
   }
-
-  // Vertical pass: one thread slides a clipped (2r+1)-row window down a column.
-  for (int c = threadIdx.x; c < sw; c += blockDim.x) {
-    const int x = cx0 + c;
-    const int lo = max(y0 - r, 0);
-    const int hi = min(y0 + r, h - 1);
-    int s = 0;
-    for (int y = lo; y <= hi; ++y) s += img[static_cast<size_t>(y) * w + x];
-    for (int i = 0; i < rows; ++i) {
-      colsum[i * sw + c] = s;
-      const int y = y0 + i;
-      if (y + 1 + r <= h - 1) s += img[static_cast<size_t>(y + 1 + r) * w + x];
-      if (y - r >= 0) s -= img[static_cast<size_t>(y - r) * w + x];
-    }
-  }
+  column_sums(src + t.base, colsum, t, h, w, r);
   __syncthreads();
 
   // Horizontal pass, clipped-count division and histogram.
-  for (int idx = threadIdx.x; idx < rows * tw; idx += blockDim.x) {
-    const int i = idx / tw;
-    const int y = y0 + i;
-    const int x = x0 + (idx - i * tw);
-    const int lo = max(x - r, 0);
-    const int hi = min(x + r, w - 1);
-    const int* row = colsum + i * sw;
-    unsigned s = 0;
-    for (int c = lo; c <= hi; ++c) s += static_cast<unsigned>(row[c - cx0]);
-    const unsigned cy = static_cast<unsigned>(min(y + r, h - 1) - max(y - r, 0) + 1);
-    const unsigned cx = static_cast<unsigned>(hi - lo + 1);
-    const unsigned v = s / (cy * cx);
-    dst[base + static_cast<size_t>(y) * w + x] = static_cast<uint8_t>(v);
+  for (int idx = threadIdx.x; idx < t.rows * t.tw; idx += blockDim.x) {
+    const int i = idx / t.tw;
+    const int x = t.x0 + (idx - i * t.tw);
+    const unsigned v = window_mean(colsum, t, i, x, h, w, r);
+    dst[t.base + static_cast<size_t>(t.y0 + i) * w + x] = static_cast<uint8_t>(v);
     if (hist != nullptr) atomicAdd(&shist[v], 1);
   }
 
   if (hist != nullptr) {
     __syncthreads();
     for (int b = threadIdx.x; b < 256; b += blockDim.x) {
-      if (shist[b] != 0) atomicAdd(&hist[static_cast<size_t>(f) * 256 + b], shist[b]);
+      if (shist[b] != 0) atomicAdd(&hist[static_cast<size_t>(t.f) * 256 + b], shist[b]);
     }
+  }
+}
+
+// K11: K1's tiles and column sums (no histogram bins in shared memory), then
+// src > (int)mean - c ? 255 : 0.  The subtraction wraps as int32 does on the
+// TPU (done in unsigned arithmetic: signed overflow is undefined in C++).
+__global__ void adaptive_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                                int c, int h, int w, int r, int tile_h, int tiles_x,
+                                int tiles_y) {
+  extern __shared__ __align__(16) unsigned char gs_smem[];
+  int* colsum = reinterpret_cast<int*>(gs_smem);
+  const BlurTile t = blur_tile(h, w, r, tile_h, tiles_x, tiles_y);
+  column_sums(src + t.base, colsum, t, h, w, r);
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < t.rows * t.tw; idx += blockDim.x) {
+    const int i = idx / t.tw;
+    const int x = t.x0 + (idx - i * t.tw);
+    const int thr = static_cast<int>(window_mean(colsum, t, i, x, h, w, r) -
+                                     static_cast<unsigned>(c));
+    const size_t off = t.base + static_cast<size_t>(t.y0 + i) * w + x;
+    dst[off] = static_cast<int>(src[off]) > thr ? 255 : 0;
   }
 }
 
@@ -172,6 +223,29 @@ __global__ void threshold_sobel_kernel(const uint8_t* __restrict__ src,
 
 int tiles(int extent, int tile) { return (extent + tile - 1) / tile; }
 
+// Tile height and shared-memory bytes of a blur-shaped kernel: `fixed` bytes,
+// then tile_h rows of column sums.  64 rows while that fits the default 48 KB,
+// fewer past it (at least 1, with the opt-in to more shared memory).
+void blur_geometry(int h, int w, int r, size_t fixed, int* tile_h, size_t* smem) {
+  const int sw_max = std::min(kBlurTileW + 2 * r, w);
+  const size_t row_bytes = static_cast<size_t>(sw_max) * sizeof(int);
+  int rows = kBlurTileH;
+  if (fixed + rows * row_bytes > kDefaultSmem) {
+    rows = static_cast<int>((kDefaultSmem - fixed) / row_bytes);
+    if (rows < 1) rows = 1;
+  }
+  *tile_h = std::min(rows, h);
+  *smem = fixed + *tile_h * row_bytes;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 }  // namespace
 
 extern "C" {
@@ -185,22 +259,11 @@ const char* gs_error_string(int code) {
 int gs_blur_hist(const void* src, void* dst, void* hist, int n, int h, int w, int r,
                  void* stream) {
   r = std::min(r, std::max(h, w));
-  const int sw_max = std::min(kBlurTileW + 2 * r, w);
-  const size_t row_bytes = static_cast<size_t>(sw_max) * sizeof(int);
-  const size_t fixed = 256 * sizeof(int);
-  int tile_h = kBlurTileH;
-  if (fixed + tile_h * row_bytes > kDefaultSmem) {
-    tile_h = static_cast<int>((kDefaultSmem - fixed) / row_bytes);
-    if (tile_h < 1) tile_h = 1;
-  }
-  tile_h = std::min(tile_h, h);
-  const size_t smem = fixed + tile_h * row_bytes;
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (smem > static_cast<size_t>(kDefaultSmem)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blur_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  int tile_h;
+  size_t smem;
+  blur_geometry(h, w, r, 256 * sizeof(int), &tile_h, &smem);
+  const cudaError_t err = allow_smem(blur_hist_kernel, smem);
+  if (err != cudaSuccess) return err;
   const int tiles_x = tiles(w, kBlurTileW);
   const int tiles_y = tiles(h, tile_h);
   const long long blocks = static_cast<long long>(n) * tiles_x * tiles_y;
@@ -209,6 +272,25 @@ int gs_blur_hist(const void* src, void* dst, void* hist, int n, int h, int w, in
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), static_cast<int*>(hist), h,
       w, r, tile_h, tiles_x, tiles_y);
+  return cudaGetLastError();
+}
+
+// src, dst: (n, h, w) uint8; c: the int32 offset.  Radius clamped as in gs_blur_hist.
+int gs_adaptive(const void* src, void* dst, int n, int h, int w, int r, int c, void* stream) {
+  r = std::min(r, std::max(h, w));
+  int tile_h;
+  size_t smem;
+  blur_geometry(h, w, r, 0, &tile_h, &smem);
+  const cudaError_t err = allow_smem(adaptive_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = tiles(w, kBlurTileW);
+  const int tiles_y = tiles(h, tile_h);
+  const long long blocks = static_cast<long long>(n) * tiles_x * tiles_y;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  adaptive_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), c, h, w, r, tile_h, tiles_x,
+      tiles_y);
   return cudaGetLastError();
 }
 

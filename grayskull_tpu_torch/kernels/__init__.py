@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-* :mod:`.preproc` — K1 ``blur_hist`` (box blur + per-frame histogram) and
-  K2 ``threshold_sobel`` (per-frame binarize + interior Sobel)
+* :mod:`.preproc` — K1 ``blur_hist`` (box blur + per-frame histogram),
+  K2 ``threshold_sobel`` (per-frame binarize + interior Sobel), K11 ``adaptive``
+  (mean-offset threshold on K1's window sum), K12 ``morph`` (3x3 erode or
+  dilate) and K13 ``filter3`` (the zero-padded 3x3 ``gs_filter``)
 * :mod:`.otsu` — K3 ``otsu`` (the bit-exact float32 Otsu sweep, a thread per frame)
 * :mod:`.integral` — K4 ``integral`` (uint32 2-D prefix sum: row scan, column scan)
 * :mod:`.lbp` — K5 ``lbp_eval_scale`` (one ladder scale of the LBP cascade, a
@@ -11,6 +13,7 @@
   K8 ``orb_brief`` (rBRIEF words, a ballot per word)
 * :mod:`.ccl` — K9 ``ccl`` (4-connected component minima by union-find)
 * :mod:`.warp` — K10 ``quad_warp`` (the bilinear quad warp, a thread per page pixel)
+* :mod:`.resize` — K14 ``resize`` (the bilinear resize, a thread per output pixel)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -25,6 +28,7 @@ from . import lbp as _lbp_mod
 from . import otsu as _otsu_mod
 from . import patches as _patches_mod
 from . import preproc as _preproc_mod
+from . import resize as _resize_mod
 from . import warp as _warp_mod
 from .ccl import ccl, ccl_plain  # noqa: F401
 from .fast import fast, fast_plain  # noqa: F401
@@ -33,11 +37,15 @@ from .lbp import lbp_eval_scale, lbp_eval_scale_plain  # noqa: F401
 from .otsu import otsu, otsu_plain  # noqa: F401
 from .patches import (extract_patches_plain, orb_brief, orb_brief_plain,  # noqa: F401
                       orb_moments, orb_moments_plain)
-from .preproc import (blur_hist, blur_hist_plain, frame_histograms,  # noqa: F401
+from .preproc import (adaptive, adaptive_plain, blur_hist, blur_hist_plain,  # noqa: F401
+                      filter3, filter3_plain, filter_plain, frame_histograms, morph, morph_plain,
                       sobel_plain, threshold_sobel, threshold_sobel_plain)
+from .resize import resize, resize_plain  # noqa: F401
 from .warp import quad_warp, quad_warp_plain  # noqa: F401
 
 __all__ = [
+    "adaptive",
+    "adaptive_plain",
     "blur_hist",
     "blur_hist_plain",
     "ccl",
@@ -45,12 +53,17 @@ __all__ = [
     "extract_patches_plain",
     "fast",
     "fast_plain",
+    "filter3",
+    "filter3_plain",
+    "filter_plain",
     "frame_histograms",
     "integral",
     "integral_plain",
     "launch_counts",
     "lbp_eval_scale",
     "lbp_eval_scale_plain",
+    "morph",
+    "morph_plain",
     "orb_brief",
     "orb_brief_plain",
     "orb_moments",
@@ -60,6 +73,8 @@ __all__ = [
     "quad_warp",
     "quad_warp_plain",
     "reset_launch_counts",
+    "resize",
+    "resize_plain",
     "sobel_plain",
     "threshold_sobel",
     "threshold_sobel_plain",
@@ -67,7 +82,7 @@ __all__ = [
 
 _COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
              _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches, _ccl_mod.launches,
-             _warp_mod.launches)
+             _warp_mod.launches, _resize_mod.launches)
 
 
 def launch_counts() -> dict:

@@ -13,8 +13,8 @@ reused.  It is written to a temporary file first and moved into place with
 :func:`os.replace`, so a second process never loads a half-written library.
 
 ``-fmad=false`` keeps ``a*b+c`` as two rounded operations everywhere: the Otsu
-sweep, the rBRIEF rotation and the quad warp must round each float operation
-as the C reference does.
+sweep, the rBRIEF rotation, the quad warp and the bilinear resize must round
+each float operation as the C reference does.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_UINT = ctypes.c_uint
 # C entry -> argument types; every pointer and the stream are c_void_p.
 _SIGNATURES = {
     "gs_blur_hist": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
@@ -52,6 +53,10 @@ _SIGNATURES = {
     "gs_orb_brief": (*(_PTR,) * 7, *(_INT,) * 4, _PTR),
     "gs_ccl": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "gs_quad_warp": (_PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
+    "gs_adaptive": (_PTR, _PTR, *(_INT,) * 5, _PTR),
+    "gs_morph": (_PTR, _PTR, *(_INT,) * 4, _PTR),
+    "gs_filter3": (_PTR, _PTR, *(_INT,) * 12, _UINT, _PTR),
+    "gs_resize": (_PTR, _PTR, *(_INT,) * 5, _PTR),
 }
 
 _lock = threading.Lock()

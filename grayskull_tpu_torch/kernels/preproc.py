@@ -7,6 +7,13 @@
 * :func:`threshold_sobel` (K2, ``csrc/preproc.cu:gs_threshold_sobel``) replaces
   ``fused_threshold_sobel`` and ``sobel_pallas``: an optional per-frame
   ``p > t[n] ? 255 : 0`` binarization, then the interior Sobel magnitude.
+* :func:`adaptive` (K11, ``csrc/preproc.cu:gs_adaptive``) replaces
+  ``adaptive_pallas``: ``src > clipped_mean - c ? 255 : 0`` on K1's window sum.
+* :func:`morph` (K12, ``csrc/stencil3.cu:gs_morph``) replaces ``morph_pallas``:
+  the 3x3 erode or dilate over the in-frame neighbours.
+* :func:`filter3` (K13, ``csrc/stencil3.cu:gs_filter3``) replaces
+  ``filter3_pallas``: the zero-padded 3x3 ``gs_filter`` with C's unsigned
+  division of the sum and a clamp to 0..255.
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU tensor
 it runs the plain version (``*_plain``), which is also what the kernel is held
@@ -19,12 +26,14 @@ import torch
 
 from . import _build
 
-__all__ = ["blur_hist", "blur_hist_plain", "frame_histograms", "launches", "sobel_plain",
-           "threshold_sobel", "threshold_sobel_plain"]
+__all__ = ["adaptive", "adaptive_plain", "blur_hist", "blur_hist_plain", "filter3",
+           "filter3_plain", "filter_plain", "frame_histograms", "launches", "morph", "morph_plain",
+           "sobel_plain", "threshold_sobel", "threshold_sobel_plain"]
 
-launches = {"blur_hist": 0, "threshold_sobel": 0}
+launches = {"blur_hist": 0, "threshold_sobel": 0, "adaptive": 0, "morph": 0, "filter3": 0}
 
 _INT32_MAX = 2**31 - 1
+_MORPH_OPS = ("erode", "dilate")
 
 
 def _check_frames(imgs: torch.Tensor, name: str) -> None:
@@ -36,6 +45,13 @@ def _check_frames(imgs: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected non-empty (N, H, W) frames, got {tuple(imgs.shape)}")
     if not imgs.is_contiguous():
         raise ValueError(f"{name}: frames must be contiguous")
+
+
+def _check_radius(name: str, r: int, h: int, w: int) -> None:
+    if r < 0:
+        raise ValueError(f"{name}: radius must be >= 0, got {r}")
+    if 255 * min(2 * r + 1, h) * min(2 * r + 1, w) > _INT32_MAX:
+        raise ValueError(f"{name}: radius {r} on {h}x{w} frames overflows the int32 window sum")
 
 
 # ---------------------------------------------------------------------------
@@ -68,16 +84,69 @@ def _window_counts(size: int, r: int, device) -> torch.Tensor:
     return (idx + r).clamp(max=size - 1) - (idx - r).clamp(min=0) + 1
 
 
-def blur_hist_plain(imgs: torch.Tensor, radius: int, with_hist: bool = True):
-    """Plain version of :func:`blur_hist`: ``(blurred, hist or None)``."""
+def _clipped_mean(imgs: torch.Tensor, r: int) -> torch.Tensor:
+    """Clipped-window box mean with truncating division, int32 or int64."""
     n, h, w = imgs.shape
-    r = int(radius)
     wide = torch.int32 if 255 * h * w <= _INT32_MAX else torch.int64
     s = _clipped_window_sum(_clipped_window_sum(imgs.to(wide), r, 2), r, 1)
     count = (_window_counts(h, r, imgs.device)[:, None]
              * _window_counts(w, r, imgs.device)[None, :]).to(wide)
-    blurred = torch.div(s, count, rounding_mode="floor").to(torch.uint8)
+    return torch.div(s, count, rounding_mode="floor")
+
+
+def blur_hist_plain(imgs: torch.Tensor, radius: int, with_hist: bool = True):
+    """Plain version of :func:`blur_hist`: ``(blurred, hist or None)``."""
+    blurred = _clipped_mean(imgs, int(radius)).to(torch.uint8)
     return blurred, frame_histograms(blurred) if with_hist else None
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor's values modulo 2^32, read as int32 (still int64)."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def adaptive_plain(imgs: torch.Tensor, radius: int, c: int) -> torch.Tensor:
+    """Plain version of :func:`adaptive`: ``src > mean - c ? 255 : 0``, the
+    subtraction wrapping as int32 does (computed in int64)."""
+    thr = _wrap_int32(_clipped_mean(imgs, int(radius)).to(torch.int64) - int(c))
+    return (imgs.to(torch.int64) > thr).to(torch.uint8) * 255
+
+
+def morph_plain(imgs: torch.Tensor, op: str) -> torch.Tensor:
+    """Plain version of :func:`morph`: the frames padded with the op-neutral value
+    (255 for erode, 0 for dilate), then the min or max of the 9 shifts."""
+    h, w = imgs.shape[-2:]
+    erode = op == "erode"
+    x = torch.nn.functional.pad(imgs, (1, 1, 1, 1), value=255 if erode else 0)
+    fn = torch.minimum if erode else torch.maximum
+    out = x[:, 1 : 1 + h, 1 : 1 + w]
+    for dy in range(3):
+        for dx in range(3):
+            out = fn(out, x[:, dy : dy + h, dx : dx + w])
+    return out.contiguous()
+
+
+def filter_plain(imgs: torch.Tensor, taps, norm: int) -> torch.Tensor:
+    """``gs_filter`` with any (kh, kw) int32 taps: the zero-padded correlation as
+    int32 multiply-adds that wrap (computed in int64, then taken modulo 2^32),
+    then C's ``int / unsigned``: the sum read as uint32, divided by ``norm``,
+    read back as int32 and clamped to 0..255."""
+    rows = [[int(v) for v in row] for row in taps]
+    kh, kw = len(rows), len(rows[0])
+    h, w = imgs.shape[-2:]
+    x = torch.nn.functional.pad(imgs.to(torch.int64), (kw // 2, kw - 1 - kw // 2,
+                                                       kh // 2, kh - 1 - kh // 2))
+    acc = torch.zeros(imgs.shape, dtype=torch.int64, device=imgs.device)
+    for j in range(kh):
+        for i in range(kw):
+            if rows[j][i] != 0:
+                acc += x[:, j : j + h, i : i + w] * rows[j][i]
+    q = torch.div(acc & 0xFFFFFFFF, int(norm), rounding_mode="floor")
+    # uint32 -> int32: a quotient of 2^31 or more is negative and clamps to 0
+    return torch.where(q >= 2**31, 0, q.clamp(max=255)).to(torch.uint8)
+
+
+filter3_plain = filter_plain  # K13's plain version: filter_plain with 3x3 taps
 
 
 def sobel_plain(imgs: torch.Tensor) -> torch.Tensor:
@@ -120,10 +189,7 @@ def blur_hist(imgs: torch.Tensor, radius: int, with_hist: bool = True):
     _check_frames(imgs, "blur_hist")
     n, h, w = imgs.shape
     r = int(radius)
-    if r < 0:
-        raise ValueError(f"blur_hist: radius must be >= 0, got {r}")
-    if 255 * min(2 * r + 1, h) * min(2 * r + 1, w) > _INT32_MAX:
-        raise ValueError(f"blur_hist: radius {r} on {h}x{w} frames overflows the int32 window sum")
+    _check_radius("blur_hist", r, h, w)
     if not imgs.is_cuda:
         return blur_hist_plain(imgs, r, with_hist)
     lib = _build.library()
@@ -167,3 +233,75 @@ def threshold_sobel(imgs: torch.Tensor, thresholds: torch.Tensor | None = None,
     _build.check(code, "threshold_sobel")
     launches["threshold_sobel"] += 1
     return binary, edges
+
+
+def adaptive(imgs: torch.Tensor, radius: int, c: int) -> torch.Tensor:
+    """K11: (N, H, W) uint8 -> ``src > clipped_mean - c ? 255 : 0`` uint8.
+
+    ``c`` is an int32 offset, passed to the kernel by value.  Any radius >= 0
+    whose clipped window sum fits int32, as :func:`blur_hist`.
+    """
+    _check_frames(imgs, "adaptive")
+    n, h, w = imgs.shape
+    r, c = int(radius), int(c)
+    _check_radius("adaptive", r, h, w)
+    if not -2**31 <= c <= _INT32_MAX:
+        raise ValueError(f"adaptive: c must fit int32, got {c}")
+    if not imgs.is_cuda:
+        return adaptive_plain(imgs, r, c)
+    lib = _build.library()
+    out = torch.empty_like(imgs)
+    with torch.cuda.device(imgs.device):
+        code = lib.gs_adaptive(imgs.data_ptr(), out.data_ptr(), n, h, w, min(r, max(h, w)), c,
+                               _build.stream_of(imgs))
+    _build.check(code, "adaptive")
+    launches["adaptive"] += 1
+    return out
+
+
+def morph(imgs: torch.Tensor, op: str) -> torch.Tensor:
+    """K12: (N, H, W) uint8 -> the 3x3 ``"erode"`` (min) or ``"dilate"`` (max) over
+    each pixel's in-frame neighbours."""
+    _check_frames(imgs, "morph")
+    if op not in _MORPH_OPS:
+        raise ValueError(f"morph: op must be 'erode' or 'dilate', got {op!r}")
+    if not imgs.is_cuda:
+        return morph_plain(imgs, op)
+    n, h, w = imgs.shape
+    lib = _build.library()
+    out = torch.empty_like(imgs)
+    with torch.cuda.device(imgs.device):
+        code = lib.gs_morph(imgs.data_ptr(), out.data_ptr(), n, h, w, int(op == "erode"),
+                            _build.stream_of(imgs))
+    _build.check(code, "morph")
+    launches["morph"] += 1
+    return out
+
+
+def filter3(imgs: torch.Tensor, taps, norm: int) -> torch.Tensor:
+    """K13: (N, H, W) uint8 and 3x3 int32 taps -> ``gs_filter``: the zero-padded
+    correlation, ``(uint32)sum / norm`` read back as int32, clamped to 0..255.
+
+    ``taps`` is any 3x3 nesting of ints in int32 range (the caller reinterprets
+    a uint8 kernel image as int8 first); ``norm`` is 1 .. 2^32 - 1.
+    """
+    _check_frames(imgs, "filter3")
+    k = [int(v) for row in taps for v in row]
+    if len(taps) != 3 or len(k) != 9 or any(len(row) != 3 for row in taps):
+        raise ValueError("filter3: taps must be 3x3")
+    if any(not -2**31 <= v <= _INT32_MAX for v in k):
+        raise ValueError(f"filter3: taps must fit int32, got {k}")
+    norm = int(norm)
+    if not 1 <= norm < 2**32:
+        raise ValueError(f"filter3: norm must be in 1 .. 2^32 - 1, got {norm}")
+    if not imgs.is_cuda:
+        return filter3_plain(imgs, taps, norm)
+    n, h, w = imgs.shape
+    lib = _build.library()
+    out = torch.empty_like(imgs)
+    with torch.cuda.device(imgs.device):
+        code = lib.gs_filter3(imgs.data_ptr(), out.data_ptr(), n, h, w, *k, norm,
+                              _build.stream_of(imgs))
+    _build.check(code, "filter3")
+    launches["filter3"] += 1
+    return out

@@ -6,19 +6,35 @@ from .features import (BRIEF_PATTERN, brief_descriptor, compute_orientation, fas
 from .histogram import histogram, otsu_from_histogram, otsu_threshold  # noqa: F401
 from .integral import integral, integral_sum  # noqa: F401
 from .lbp import lbp_detect, lbp_warm_start, lbp_window, scale_ladder  # noqa: F401
-from .pixel import blur, downsample, sobel, threshold  # noqa: F401
+from .pixel import (BLUR_BOX_KERNEL, BLUR_GAUSSIAN_KERNEL, EMBOSS_KERNEL,  # noqa: F401
+                    SHARPEN_KERNEL, adaptive_threshold, blur, blur_box, blur_gaussian, copy, crop,
+                    dilate, downsample, emboss, erode, filter2d, resize, resize_nn, sharpen, sobel,
+                    threshold)
 from .warp import perspective_correct  # noqa: F401
 
 __all__ = [
+    "BLUR_BOX_KERNEL",
+    "BLUR_GAUSSIAN_KERNEL",
     "BRIEF_PATTERN",
+    "EMBOSS_KERNEL",
+    "SHARPEN_KERNEL",
+    "adaptive_threshold",
     "blob_corners",
     "blobs",
     "blur",
+    "blur_box",
+    "blur_gaussian",
     "brief_descriptor",
     "compute_orientation",
+    "copy",
+    "crop",
+    "dilate",
     "downsample",
+    "emboss",
+    "erode",
     "fast",
     "fast_scoremap",
+    "filter2d",
     "hamming_distance",
     "histogram",
     "integral",
@@ -32,7 +48,10 @@ __all__ = [
     "otsu_from_histogram",
     "otsu_threshold",
     "perspective_correct",
+    "resize",
+    "resize_nn",
     "scale_ladder",
+    "sharpen",
     "sobel",
     "threshold",
 ]

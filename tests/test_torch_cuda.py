@@ -23,6 +23,7 @@ from grayskull_tpu_torch.core import LbpCascade, host_arrays_to
 from grayskull_tpu_torch.ops.lbp import _grid_plan
 
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
+NO_DENSE = {"adaptive": 0, "morph": 0, "filter3": 0, "resize": 0}  # K11-K14 not launched
 
 
 def otsu_edge_histograms():
@@ -126,7 +127,7 @@ def test_preprocess_launches_every_kernel_on_card(cuda_device):
     counts = K.launch_counts()
     assert counts == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 1, "integral": 0,
                       "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0, "orb_brief": 0,
-                      "ccl": 0, "quad_warp": 0}
+                      "ccl": 0, "quad_warp": 0, **NO_DENSE}
     ref = gt.preprocess(imgs, force_reference=True)
     assert K.launch_counts() == counts
     for a, b in zip(out, ref):
@@ -197,7 +198,8 @@ def test_detect_faces_launches_its_kernels_on_card(cuda_device):
     nscales = len(_grid_plan(gt.load_frontalface(), 128, 128, 1.2, 1.0, 4.0, 2))
     assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0,
                                  "integral": 1, "lbp_eval_scale": nscales, "fast": 0,
-                                 "orb_moments": 0, "orb_brief": 0, "ccl": 0, "quad_warp": 0}
+                                 "orb_moments": 0, "orb_brief": 0, "ccl": 0, "quad_warp": 0,
+                                 **NO_DENSE}
     ref = gt.detect_faces(frames, step=2, force_reference=True)
     assert K.launch_counts()["lbp_eval_scale"] == nscales
     on_cpu = gt.detect_faces(frames.cpu(), step=2)
@@ -377,7 +379,7 @@ def test_scan_launches_its_kernels_on_card(cuda_device):
     pages, corners = gt.scan(frames.to(cuda_device))
     assert K.launch_counts() == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 0, "integral": 0,
                                  "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0,
-                                 "orb_brief": 0, "ccl": 1, "quad_warp": 1}
+                                 "orb_brief": 0, "ccl": 1, "quad_warp": 1, **NO_DENSE}
     ref = gt.scan(frames.to(cuda_device), force_reference=True)
     on_cpu = gt.scan(frames)
     for a, b, c in zip((pages, corners), ref, on_cpu):
@@ -393,3 +395,66 @@ def test_host_arrays_go_to_the_card(cuda_device):
         pages, corners = gt.scan(img, out_size=(20, 10))
     assert out.is_cuda and pages.is_cuda and corners.is_cuda
     assert torch.equal(out.cpu(), gt.blur(img, 1))
+
+
+DENSE_TAPS = [(((0, -1, 0), (-1, 5, -1), (0, -1, 0)), 1), (((-2, -1, 0), (-1, 1, 1), (0, 1, 2)), 1),
+              (((1, 1, 1),) * 3, 9), (((1, 2, 1), (2, 4, 2), (1, 2, 1)), 16),
+              (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 1), (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 7),
+              (((300, -1000, 5), (0, 70000, 0), (1, 2, -99999)), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(1, 1, 9), (2, 5, 1)])
+def test_dense_kernels_match_plain_on_card(cuda_device, shape):
+    imgs = _frames(shape, 60, cuda_device)
+    for r in (0, 1, 2, 6, 15, 40, 300):
+        for c in (-3, 0, 5, 40, -2**31):
+            got = K.adaptive(imgs, r, c)
+            assert got.is_cuda and torch.equal(got, K.adaptive_plain(imgs, r, c)), (r, c)
+    for op in ("erode", "dilate"):
+        assert torch.equal(K.morph(imgs, op), K.morph_plain(imgs, op)), op
+    for taps, norm in DENSE_TAPS:
+        assert torch.equal(K.filter3(imgs, taps, norm), K.filter3_plain(imgs, taps, norm)), taps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [((1024, 1024), (480, 640)), ((480, 640), (768, 1024)),
+                                     ((480, 640), (347, 200)), ((200, 256), (200, 256)),
+                                     ((816, 612), (100, 40)), ((1, 1), (5, 7)), ((7, 1), (3, 9))])
+def test_resize_matches_plain_on_card(cuda_device, src, dst):
+    imgs = _frames((2,) + src, 61, cuda_device)
+    got = K.resize(imgs, dst)
+    assert got.is_cuda and tuple(got.shape) == (2,) + dst
+    assert torch.equal(got, K.resize_plain(imgs, dst))
+    assert torch.equal(got.cpu(), K.resize_plain(imgs.cpu(), dst))
+
+
+@pytest.mark.cuda
+def test_adaptive_morph_launches_its_kernels_on_card(cuda_device):
+    """BASELINE config #2 on two receipt frames: K11 once, K12 twice, no other kernel."""
+    rec = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/receipt.pgm")
+    frames = torch.from_numpy(np.stack([rec, np.roll(rec, 5, axis=1)]))
+    K.reset_launch_counts()
+    out = gt.erode(gt.dilate(gt.adaptive_threshold(frames.to(cuda_device), 15, 5)))
+    assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0, "integral": 0,
+                                 "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0,
+                                 "orb_brief": 0, "ccl": 0, "quad_warp": 0, "adaptive": 1,
+                                 "morph": 2, "filter3": 0, "resize": 0}
+    on_cpu = gt.erode(gt.dilate(gt.adaptive_threshold(frames, 15, 5)))
+    assert out.is_cuda and torch.equal(out.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+def test_cli_on_card_matches_cpu(cuda_device, tmp_path):
+    from grayskull_tpu_torch import cli
+
+    lena = __file__.rsplit("/", 1)[0] + "/golden/testdata/lena.pgm"
+    for args in (["adaptive", "15", "5"], ["morph", "dilate", "2"], ["sobel"],
+                 ["resize", "100", "40"], ["blobs", "50"], ["scan"]):
+        paths = []
+        for where in (None, "cpu"):
+            out = tmp_path / f"{args[0]}_{where}.pgm"
+            with host_arrays_to(where):
+                assert cli.main(["nanomagick", *args, lena, str(out)]) == 0
+            paths.append(out)
+        assert paths[0].read_bytes() == paths[1].read_bytes(), args

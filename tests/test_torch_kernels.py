@@ -110,9 +110,14 @@ def test_plain_runs_on_cpu_without_counting():
     K.orb_brief(imgs, xy, xy, torch.zeros((1, 3)), torch.ones((1, 3)))
     K.ccl(imgs)
     K.quad_warp(imgs, torch.zeros((1, 4, 2), dtype=torch.int32), (3, 4))
+    K.adaptive(imgs, 2, 5)
+    K.morph(imgs, "erode")
+    K.filter3(imgs, ((0, -1, 0), (-1, 5, -1), (0, -1, 0)), 1)
+    K.resize(imgs, (5, 6))
     assert K.launch_counts() == before
     assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale",
-                           "fast", "orb_moments", "orb_brief", "ccl", "quad_warp"}
+                           "fast", "orb_moments", "orb_brief", "ccl", "quad_warp", "adaptive",
+                           "morph", "filter3", "resize"}
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
@@ -222,7 +227,8 @@ def test_wrappers_reject_bad_input():
 def test_build_command_targets_hopper_without_fma(tmp_path):
     srcs = _build.sources()
     assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu", "fast.cu",
-                                      "patches.cu", "ccl.cu", "warp.cu"}
+                                      "patches.cu", "ccl.cu", "warp.cu", "stencil3.cu",
+                                      "resize.cu"}
     for src in srcs:  # one nvcc per source, started together
         cmd = _build.compile_command(src, tmp_path / f"{src.stem}.o")
         assert cmd[0].endswith("nvcc")
@@ -243,7 +249,8 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
     assert set(_build._SIGNATURES) == {"gs_blur_hist", "gs_threshold_sobel", "gs_otsu",
                                        "gs_integral", "gs_lbp_eval_scale", "gs_fast",
                                        "gs_orb_moments", "gs_orb_brief", "gs_ccl",
-                                       "gs_quad_warp"}
+                                       "gs_quad_warp", "gs_adaptive", "gs_morph", "gs_filter3",
+                                       "gs_resize"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
