@@ -36,15 +36,25 @@ counts set to 0 just before it and read just after:
   against the plain path on the card, the CPU for frames 0 and 255, and the
   goldens;
 * the nanomagick CLI (``grayskull_tpu_torch.cli.main``), each of its 14
-  commands on the card, byte for byte against the same command on the CPU.
+  commands on the card, byte for byte against the same command on the CPU;
+* the sharded paths (``grayskull_tpu_torch.parallel``) on meshes that name
+  ``cuda:0`` several times: ``preprocess_spatial_shardmap`` on the 256 lena
+  frames of 1024x1024 over a (1, 4) mesh (K15 4 times, K3 once, K16 4 times)
+  and 16 of them over (2, 4) at r = 1 and 5, ``preprocess_sharded``,
+  ``integral_sharded`` and ``scan_sharded``, each against its single-device
+  entry point, and two frames against the plain path on the CPU;
+* the bandwidth probe (``grayskull_tpu_torch.profiling.hbm_bandwidth_gbps``,
+  K17 ``copy`` and K18 ``triad`` over 256 MiB).
 
-Then it times the paths with CUDA events, profiles the scanner, config #2 and
-the resize (``torch.profiler``: device time by kernel, idle share, host enqueue
-time) and takes K7's and K8's device time from the profiler.
+Then it times the paths with CUDA events, profiles the scanner, config #2,
+the resize and the sharded preprocess (``torch.profiler``: device time by
+kernel and op, idle share, host enqueue time) and takes K7's and K8's device
+time from the profiler.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
-time) and the card's ``nvidia-smi`` name and power limit, and the last line is
+time, and its bound again at the measured copy rate, ``bound_ms_at_copy``)
+and the card's ``nvidia-smi`` name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
@@ -114,6 +124,14 @@ KERNELS = {
                 "replaces": "grayskull_tpu/kernels/preproc.py:723"},
     "resize": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/resize.cu",
                "replaces": "grayskull_tpu/kernels/resize.py:217"},
+    "blur_hist_window": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/preproc.cu",
+                         "replaces": "grayskull_tpu/kernels/preproc.py:351"},
+    "threshold_sobel_window": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/preproc.cu",
+                               "replaces": "grayskull_tpu/kernels/preproc.py:865"},
+    "copy": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/bandwidth.cu",
+             "replaces": "grayskull_tpu/profiling.py:56"},
+    "triad": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/bandwidth.cu",
+              "replaces": "grayskull_tpu/profiling.py:61"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
@@ -154,6 +172,12 @@ RESIZE_CASES = [((1024, 1024), (480, 640)), ((480, 640), (768, 1024)), ((480, 64
                 ((200, 256), (200, 256)), ((816, 612), (100, 40)), ((1, 1), (5, 7)),
                 ((7, 1), (3, 9))]
 RESIZE_N, RESIZE_TO = 256, (480, 640)
+SHARDED_KERNELS = ("blur_hist_window", "otsu", "threshold_sobel_window")
+BANDWIDTH_KERNELS = ("copy", "triad")
+WINDOW_RADII = (1, 2, 6, 16)
+BANDWIDTH_SIZES = (1, 15, 17, 2**20 + 3, 2**28)  # bytes: tails past whole 16-byte words
+SPACE = 4  # shards a frame's rows split into on the main sharded mesh
+PREPROCESS_OUTPUTS = ("blurred", "binary", "edges", "thresholds")
 CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
     (["identify"], "lena", ()), (["view"], "lena", ()),
     (["resize", "300", "170"], "lena", ("resize",)), (["crop", "20", "10", "40", "30"], "lena", ()),
@@ -185,7 +209,12 @@ def kernel_entry(ms, plain_ms, nbytes, ops, library_ms=None, library=None):
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms, "library": library}
+            "library_ms": library_ms, "library": library, "bytes": nbytes, "operations": ops}
+
+
+def bound_at(entry, bytes_per_s):
+    """``entry``'s bound with the memory rate ``bytes_per_s`` in place of the data sheet's."""
+    return max(entry["bytes"] / bytes_per_s * 1e3, entry["operations"] / OPS_PER_S * 1e3)
 
 
 class Checker:
@@ -1214,6 +1243,197 @@ def phase_cli(dev):
     return launches
 
 
+def card_mesh(shape, dev):
+    """A mesh of ``shape`` that names ``dev`` for every position."""
+    return gt.parallel.make_mesh(shape, devices=[dev] * int(np.prod(shape)))
+
+
+def phase_sharded_kernels(chk, rng, dev):
+    """K15 and K16 at the first, a middle and the last row offset of a frame 8
+    rows taller than the array; K17 and K18 on sizes whose tails are not whole
+    16-byte words, aligned and one byte off."""
+    for shape in SHAPES:
+        n, h, w = shape
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        t = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
+        h_total = h + 8
+        for r in WINDOW_RADII:
+            lo = min(r, h)
+            kw = {"h_total": h_total, "row_lo": lo, "row_hi": max(lo, h - r)}
+            for row0 in (-r, 4, h_total + r - h):
+                got = K.blur_hist_window(imgs, row0, r, **kw)
+                ref = K.blur_hist_window_plain(imgs, row0, r, **kw)
+                chk.same("blur_hist_window", got[0], ref[0], f"{shape} r={r} row0={row0} blurred")
+                chk.same("blur_hist_window", got[1], ref[1], f"{shape} r={r} row0={row0} hist")
+        for row0 in (-1, 4, h_total + 1 - h):
+            for want_binary in (True, False):
+                got = K.threshold_sobel_window(imgs, t, row0, h_total=h_total,
+                                               want_binary=want_binary)
+                ref = K.threshold_sobel_window_plain(imgs, t, row0, h_total=h_total,
+                                                     want_binary=want_binary)
+                what = f"{shape} row0={row0} want_binary={want_binary}"
+                chk.same("threshold_sobel_window", got[0], ref[0], what + " binary")
+                chk.same("threshold_sobel_window", got[1], ref[1], what + " edges")
+        torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for size in BANDWIDTH_SIZES:
+        x, y = (torch.randint(0, 256, (size + 1,), dtype=torch.uint8, device=dev, generator=gen)
+                for _ in range(2))
+        for a, b, what in ((x[:size], y[:size], "aligned"), (x[1:], y[1:], "one byte off")):
+            chk.same("copy", K.copy(a), K.copy_plain(a), f"{size} B {what}")
+            chk.same("triad", K.triad(a, b), K.triad_plain(a, b), f"{size} B {what}")
+        del x, y
+        torch.cuda.synchronize()
+    names = ("blur_hist_window", "threshold_sobel_window", "copy", "triad")
+    emit("sharded_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES],
+         radii=list(WINDOW_RADII), sizes=list(BANDWIDTH_SIZES),
+         checks={k: chk.checks[k] for k in names}, max_abs_err={k: chk.max_err[k] for k in names})
+
+
+def phase_sharded_path(chk, dev, lena):
+    """The sharded entry points on meshes of ``cuda:0``, each against its
+    single-device entry point on the same frames."""
+    par = gt.parallel
+    mesh = card_mesh((1, SPACE), dev)
+    out, l_full = _launched(SHARDED_KERNELS, par.preprocess_spatial_shardmap, lena, mesh, MAIN_R)
+    want = {"blur_hist_window": SPACE, "otsu": 1, "threshold_sobel_window": SPACE,
+            "blur_hist": 0, "threshold_sobel": 0}
+    if any(l_full[k] != v for k, v in want.items()):
+        raise AssertionError(f"(1, {SPACE}) sharded preprocess launched {l_full}, want {want}")
+    owners = ("blur_hist_window", "threshold_sobel_window", "threshold_sobel_window", "otsu")
+    ref = gt.preprocess(lena, MAIN_R)
+    for name, owner, a, b in zip(PREPROCESS_OUTPUTS, owners, out, ref):
+        chk.same(owner, a, b, f"(1, {SPACE}) sharded {name} vs preprocess")
+    runs = [l_full]
+    batch = lena[:16]
+    mesh24 = card_mesh((2, 4), dev)
+    for r in (1, 5):
+        got, counts = _launched(SHARDED_KERNELS, par.preprocess_spatial_shardmap, batch, mesh24, r)
+        runs.append(counts)
+        for name, owner, a, b in zip(PREPROCESS_OUTPUTS, owners, got, gt.preprocess(batch, r)):
+            chk.same(owner, a, b, f"(2, 4) r={r} sharded {name} vs preprocess")
+    got, counts = _launched(PREPROCESS_KERNELS, par.preprocess_sharded, batch,
+                            card_mesh((4, 1), dev), MAIN_R)
+    runs.append(counts)
+    kinds = ("blur_hist", "threshold_sobel", "threshold_sobel", "otsu")
+    for name, owner, a, b in zip(PREPROCESS_OUTPUTS, kinds, got, gt.preprocess(batch, MAIN_R)):
+        chk.same(owner, a, b, f"(4, 1) preprocess_sharded {name} vs preprocess")
+    frames = torch.from_numpy(lena_batch(32, FACES_H, FACES_W, roll=7)).to(dev)
+    got, counts = _launched(("integral",), par.integral_sharded, frames, mesh)
+    runs.append(counts)
+    chk.same("integral", got, gt.integral(frames), f"(1, {SPACE}) integral_sharded vs integral")
+    docs = torch.from_numpy(document_batch(SCAN_N)).to(dev)
+    (pages, corners), counts = _launched(SCAN_KERNELS, par.scan_sharded, docs,
+                                         card_mesh((2, 1), dev), SCAN_PAGE, SCAN_CAP)
+    runs.append(counts)
+    ref_pages, ref_corners = gt.scan(docs, SCAN_PAGE, SCAN_CAP)
+    chk.same("quad_warp", pages, ref_pages, "(2, 1) scan_sharded pages vs scan")
+    chk.same("ccl", corners, ref_corners, "(2, 1) scan_sharded corners vs scan")
+    rows = [0, MAIN_N - 1]
+    cpu_mesh = gt.parallel.make_mesh((1, SPACE), devices=["cpu"] * SPACE)
+    on_cpu = par.preprocess_spatial_shardmap(lena[rows].cpu(), cpu_mesh, MAIN_R)
+    for name, a, b in zip(PREPROCESS_OUTPUTS, out, on_cpu):
+        if not torch.equal(a[rows].cpu(), b):
+            raise AssertionError(f"sharded {name}: card differs from the plain path on the CPU")
+    launches = {name: sum(c[name] for c in runs) for name in KERNELS}
+    emit("sharded_path", ok=True, frames=MAIN_N, height=MAIN_H, width=MAIN_W, radius=MAIN_R,
+         mesh=[1, SPACE], devices=[str(d) for d in mesh.devices.flat], launches=launches,
+         launches_full_width=l_full, launches_per_run=runs[1:],
+         also=["(2, 4) r=1 and r=5 on 16 frames", "preprocess_sharded (4, 1)",
+               "integral_sharded (1, 4) on 32x480x640", "scan_sharded (2, 1) on 8 documents"],
+         cpu_frames_checked=rows, thresholds=sorted(set(out[3].tolist()))[:8])
+    return launches
+
+
+def phase_bandwidth(card, dev):
+    """``hbm_bandwidth_gbps`` with the counts at 0, then K17 and K18 against
+    their plain versions and the library calls at the probe's 256 MiB."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    rates = gt.profiling.hbm_bandwidth_gbps()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    missing = [name for name in BANDWIDTH_KERNELS if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"hbm_bandwidth_gbps did not launch {missing}: {launches}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, y = (torch.randint(0, 256, (512, 512, 1024), dtype=torch.uint8, device=dev, generator=gen)
+            for _ in range(2))  # the probe's 256 MiB
+    out = torch.empty_like(x)
+    nb = x.numel()
+    times = {
+        "copy": kernel_entry(timeit(K.copy, x) * 1e3, timeit(K.copy_plain, x) * 1e3, 2 * nb, 0,
+                             timeit(out.copy_, x) * 1e3,
+                             "Tensor.copy_ (the plain version, clone, is nearly the same call)"),
+        "triad": kernel_entry(timeit(K.triad, x, y) * 1e3, timeit(K.triad_plain, x, y, iters=3) * 1e3,
+                              3 * nb, nb, timeit(torch.add, x, y, out=out) * 1e3,
+                              "torch.add(x, y, out=o) on uint8"),
+    }
+    for name, entry in times.items():
+        emit("kernel_time", card=card, kernel=name, shape=list(x.shape), **entry)
+    emit("bandwidth", card=card, **rates, launches={k: launches[k] for k in BANDWIDTH_KERNELS},
+         operand_bytes=nb, copy_ms=times["copy"]["ms"], copy__ms=times["copy"]["library_ms"],
+         triad_ms=times["triad"]["ms"], add_ms=times["triad"]["library_ms"],
+         source="profiling.hbm_bandwidth_gbps: median of 3 windows of 20 calls")
+    return launches, times, rates
+
+
+def phase_sharded_timing(batch, card):
+    """The full-width (1, 4) call, its shard bodies without the gather, and
+    ``preprocess`` on the same batch; K15 and K16 at one shard's shapes."""
+    from grayskull_tpu_torch.parallel.halo import exchange_halo
+    from grayskull_tpu_torch.parallel.sharded import _spatial_shards
+
+    par = gt.parallel
+    mesh = card_mesh((1, SPACE), batch.device)
+    n = batch.shape[0]
+    t_call = timeit(par.preprocess_spatial_shardmap, batch, mesh, MAIN_R)
+    t_bodies = timeit(_spatial_shards, batch, mesh, MAIN_R, "data", "space", True)
+    t_single = timeit(gt.preprocess, batch, MAIN_R)
+    emit("sharded_timing", card=card, metric="spatial_preprocess_1MP_frames_per_sec",
+         value=n / t_call, unit="frames/sec/card", mesh=[1, SPACE], frames=n,
+         ms_per_batch=t_call * 1e3, shard_bodies_frames_per_sec=n / t_bodies,
+         shard_bodies_ms=t_bodies * 1e3, preprocess_frames_per_sec=n / t_single,
+         preprocess_ms=t_single * 1e3,
+         windows="median of 3 windows of 20 calls after 2 warm-up calls")
+    h_loc = MAIN_H // SPACE
+    shards = [batch[:, s * h_loc:(s + 1) * h_loc] for s in range(SPACE)]
+    x = exchange_halo(shards, MAIN_R)[1].contiguous()  # a middle shard: (256, 260, 1024)
+    kw = {"h_total": MAIN_H, "row_lo": MAIN_R, "row_hi": MAIN_R + h_loc}
+    row0 = h_loc - MAIN_R
+    blurred, hist = K.blur_hist_window(x, row0, MAIN_R, **kw)
+    t = K.otsu(hist, MAIN_H * MAIN_W)
+    b = blurred[:, MAIN_R - 1:MAIN_R + h_loc + 1].contiguous()  # (256, 258, 1024)
+    xf = x.to(torch.float32)[:, None]
+    k = 2 * MAIN_R + 1
+    pool_ms = timeit(torch.nn.functional.avg_pool2d, xf, k, 1, MAIN_R,
+                     count_include_pad=False) * 1e3
+    del xf
+    px15, px16 = x.numel(), b.numel()
+    times = {
+        "blur_hist_window": kernel_entry(
+            timeit(K.blur_hist_window, x, row0, MAIN_R, **kw) * 1e3,
+            timeit(K.blur_hist_window_plain, x, row0, MAIN_R, iters=3, **kw) * 1e3,
+            2 * px15 + n * 1024, 10 * px15, pool_ms,
+            "avg_pool2d(count_include_pad=False) of the float shard: float mean, no truncation, "
+            "no histogram"),
+        "threshold_sobel_window": kernel_entry(
+            timeit(K.threshold_sobel_window, b, t, h_loc - 1, h_total=MAIN_H) * 1e3,
+            timeit(K.threshold_sobel_window_plain, b, t, h_loc - 1, h_total=MAIN_H,
+                   iters=3) * 1e3,
+            3 * px16 + n, 16 * px16, None,
+            "none: no one call gives (|gx|+|gy|)/2 of the binarized shard"),
+    }
+    for name, entry in times.items():
+        emit("kernel_time", card=card, kernel=name,
+             shape=list((x if name == "blur_hist_window" else b).shape),
+             launches_per_call=SPACE, **entry)
+    emit("sharded_profile", card=card, entry=f"preprocess_spatial_shardmap (1, {SPACE}), 256 x 1 MP",
+         **profile_calls(par.preprocess_spatial_shardmap, batch, mesh, MAIN_R))
+    emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1232,13 +1452,17 @@ def main():
     phase_orb_kernels(chk, np.random.default_rng(2), dev)
     phase_scan_kernels(chk, np.random.default_rng(3), dev)
     phase_dense_kernels(chk, np.random.default_rng(4), dev)
+    phase_sharded_kernels(chk, np.random.default_rng(5), dev)
     batch, pre_launches = phase_main_path(chk, dev)
     faces_batch, faces_launches = phase_faces_path(chk, dev)
     orb_frames, orb_launches = phase_orb_path(chk, dev)
     scan_batch, scan_corners, scan_launches = phase_scan_path(chk, dev)
     dense_batch, dense_binary, dense_launches = phase_dense_path(chk, dev)
     cli_launches = phase_cli(dev)
-    times = phase_timing(batch, card)
+    sharded_launches = phase_sharded_path(chk, dev, batch)
+    bw_launches, times, rates = phase_bandwidth(card, dev)
+    times.update(phase_timing(batch, card))
+    times.update(phase_sharded_timing(batch, card))
     del batch
     times.update(phase_faces_timing(faces_batch, card))
     times.update(phase_orb_timing(orb_frames, card))
@@ -1250,10 +1474,14 @@ def main():
     # each path ran with the counts at 0 and launches only its own kernels
     launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]
                 + scan_launches[name] + dense_launches[name] + cli_launches[name]
+                + sharded_launches[name] + bw_launches[name]
                 for name in KERNELS}
     emit("elapsed", seconds=time.perf_counter() - t_start)
+    copy_rate = rates["copy_gbps"] * 1e9
     summary = [{"name": name, **info, "launches": launches[name],
-                "max_abs_err": chk.max_err[name], **times[name]}
+                "max_abs_err": chk.max_err[name], **times[name],
+                "bound_ms_at_copy": bound_at(times[name], copy_rate),
+                "copy_gbps": rates["copy_gbps"]}
                for name, info in KERNELS.items()]
     print(json.dumps({"kernels": summary}))
     print(card)

@@ -5,9 +5,10 @@ The same uint8 NHW convention, module layout and function names as
 hand-written Hopper kernels (``csrc/*.cu``, built with ``nvcc`` on first use), a
 CPU tensor their plain PyTorch versions; a numpy array goes to the CUDA device
 (:func:`core.host_arrays_to` asks for the CPU instead).  Outputs are bit-exact
-with the JAX package.  Five slices are ported: the preprocess main path, face
-detection, ORB, the document scanner and the rest of the dense pixel ops, with
-the nanomagick CLI (``python -m grayskull_tpu_torch.cli``) on top::
+with the JAX package.  Six slices are ported: the preprocess main path, face
+detection, ORB, the document scanner, the rest of the dense pixel ops with the
+nanomagick CLI (``python -m grayskull_tpu_torch.cli``) on top, and the sharded
+paths of :mod:`.parallel` with the bandwidth probe of :mod:`.profiling`::
 
     import grayskull_tpu_torch as gs
     frames = gs.as_image(gs.io.read_pgm_batch(paths))   # on the card
@@ -24,11 +25,16 @@ the nanomagick CLI (``python -m grayskull_tpu_torch.cli``) on top::
     # adaptive threshold -> dilate -> erode (BASELINE config #2), bilinear resize
     clean = gs.erode(gs.dilate(gs.adaptive_threshold(frames, 15, 5)))
     small = gs.resize(frames, (480, 640))
+    # the same preprocess with each frame's rows split over 4 shards of one card
+    mesh = gs.parallel.make_mesh((1, 4), devices=["cuda:0"] * 4)
+    blurred, binary, edges, thresholds = gs.parallel.preprocess_spatial_shardmap(frames, mesh)
+    rates = gs.profiling.hbm_bandwidth_gbps()   # {"copy_gbps": ..., "triad_gbps": ...}
 
 The package imports no JAX and builds nothing at import.
 """
 
-from . import cascade, core, io, kernels, libm32, ops, pipelines, profiling, structlog  # noqa: F401
+from . import (cascade, core, io, kernels, libm32, ops, parallel, pipelines,  # noqa: F401
+               profiling, structlog)
 from .cascade import load_frontalface, load_opencv_xml  # noqa: F401
 from .core import (Blobs, Keypoints, LbpCascade, Matches, Point, Rect, Rects,  # noqa: F401
                    as_image, is_batched)

@@ -17,6 +17,17 @@
 //    clipped window sum (the same column-sum stage, as _adaptive_kernel shares
 //    _blur_block), an unsigned division, then an int32 subtraction and compare.
 //    No radius gate: any radius whose window sum fits int32, as K1.
+// K15 gs_blur_hist_window replaces fused_blur_hist_window (:351, body
+//    _blur_hist_window_kernel :307): K1 on one H-shard that carries r exchanged
+//    halo rows on each side.  The column sums clip to the array's rows; the
+//    window's pixel count is taken at global rows y + row0, clipped to
+//    [0, h_total); the histogram counts only array rows in [row_lo, row_hi).
+// K16 gs_threshold_sobel_window replaces fused_threshold_sobel_window (:865,
+//    body _threshold_sobel_window_kernel :829): K2 with thresholds on one
+//    H-shard with a 1-row halo; the zero border is decided at global rows
+//    y + row0, so shard seams get real edges and only the frame's edge is 0.
+//    K15 and K16 are K1's and K2's kernels instantiated with kWindow = true,
+//    so the shared code cannot drift and K1/K2 compile as before.
 //
 // What bounds them: both are memory-bound.  Per pixel K1 reads 1 B and writes
 // 1 B (plus a few shared-memory atomics for the histogram); K2 reads 1 B and
@@ -97,16 +108,18 @@ __device__ __forceinline__ void column_sums(const uint8_t* img, int* colsum, con
 }
 
 // Horizontal pass at (i, x) of the tile: the clipped window sum over the column
-// sums, divided (unsigned, truncating) by the clipped window's pixel count.
+// sums, divided (unsigned, truncating) by the clipped window's pixel count.  The
+// count's rows are global: array row y is frame row y + row0 of a frame of
+// h_total rows (row0 = 0, h_total = h for a whole frame).
 __device__ __forceinline__ unsigned window_mean(const int* colsum, const BlurTile& t, int i,
-                                                int x, int h, int w, int r) {
-  const int y = t.y0 + i;
+                                                int x, int row0, int h_total, int w, int r) {
+  const int y = t.y0 + i + row0;
   const int lo = max(x - r, 0);
   const int hi = min(x + r, w - 1);
   const int* row = colsum + i * t.sw;
   unsigned s = 0;
   for (int c = lo; c <= hi; ++c) s += static_cast<unsigned>(row[c - t.cx0]);
-  const unsigned cy = static_cast<unsigned>(min(y + r, h - 1) - max(y - r, 0) + 1);
+  const unsigned cy = static_cast<unsigned>(min(y + r, h_total - 1) - max(y - r, 0) + 1);
   const unsigned cx = static_cast<unsigned>(hi - lo + 1);
   return s / (cy * cx);
 }
@@ -114,9 +127,13 @@ __device__ __forceinline__ unsigned window_mean(const int* colsum, const BlurTil
 // Grid: one block per (frame, tile_y, tile_x), flattened into blockIdx.x.
 // Shared memory: 256 int histogram bins, then tile_h rows of vertical window
 // sums over the tile's columns widened by r on each side (clipped to the frame).
+// K1 is kWindow = false (row0, h_total, row_lo and row_hi unused); K15 is
+// kWindow = true: counts at global rows, histogram of rows [row_lo, row_hi).
+template <bool kWindow>
 __global__ void blur_hist_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                                  int* __restrict__ hist, int h, int w, int r, int tile_h,
-                                 int tiles_x, int tiles_y) {
+                                 int tiles_x, int tiles_y, int row0, int h_total, int row_lo,
+                                 int row_hi) {
   extern __shared__ __align__(16) unsigned char gs_smem[];
   int* shist = reinterpret_cast<int*>(gs_smem);
   int* colsum = shist + 256;
@@ -132,9 +149,15 @@ __global__ void blur_hist_kernel(const uint8_t* __restrict__ src, uint8_t* __res
   for (int idx = threadIdx.x; idx < t.rows * t.tw; idx += blockDim.x) {
     const int i = idx / t.tw;
     const int x = t.x0 + (idx - i * t.tw);
-    const unsigned v = window_mean(colsum, t, i, x, h, w, r);
-    dst[t.base + static_cast<size_t>(t.y0 + i) * w + x] = static_cast<uint8_t>(v);
-    if (hist != nullptr) atomicAdd(&shist[v], 1);
+    const int y = t.y0 + i;
+    const unsigned v = kWindow ? window_mean(colsum, t, i, x, row0, h_total, w, r)
+                               : window_mean(colsum, t, i, x, 0, h, w, r);
+    dst[t.base + static_cast<size_t>(y) * w + x] = static_cast<uint8_t>(v);
+    // K15's mean passes 255 when a summed halo row past the frame is not 0
+    // (the count leaves it out); the stored byte, mod 256, is what is counted
+    if (hist != nullptr && (!kWindow || (y >= row_lo && y < row_hi))) {
+      atomicAdd(&shist[kWindow ? v & 255u : v], 1);
+    }
   }
 
   if (hist != nullptr) {
@@ -160,7 +183,7 @@ __global__ void adaptive_kernel(const uint8_t* __restrict__ src, uint8_t* __rest
   for (int idx = threadIdx.x; idx < t.rows * t.tw; idx += blockDim.x) {
     const int i = idx / t.tw;
     const int x = t.x0 + (idx - i * t.tw);
-    const int thr = static_cast<int>(window_mean(colsum, t, i, x, h, w, r) -
+    const int thr = static_cast<int>(window_mean(colsum, t, i, x, 0, h, w, r) -
                                      static_cast<unsigned>(c));
     const size_t off = t.base + static_cast<size_t>(t.y0 + i) * w + x;
     dst[off] = static_cast<int>(src[off]) > thr ? 255 : 0;
@@ -168,11 +191,15 @@ __global__ void adaptive_kernel(const uint8_t* __restrict__ src, uint8_t* __rest
 }
 
 // Grid: one block per (frame, tile_y, tile_x).  Shared memory: the tile plus a
-// 1-pixel halo, zero outside the frame, already binarized when `thr` is given.
+// 1-pixel halo, zero outside the array, already binarized when `thr` is given.
+// K2 is kWindow = false; K16 is kWindow = true: array row y is frame row
+// y + row0 of a frame of h_total rows, and the interior test uses that row.
+template <bool kWindow>
 __global__ void threshold_sobel_kernel(const uint8_t* __restrict__ src,
                                        const uint8_t* __restrict__ thr,
                                        uint8_t* __restrict__ binary, uint8_t* __restrict__ edges,
-                                       int h, int w, int tiles_x, int tiles_y) {
+                                       int h, int w, int tiles_x, int tiles_y, int row0,
+                                       int h_total) {
   constexpr int kPitch = kSobelTileW + 2;
   extern __shared__ __align__(16) unsigned char gs_smem[];
   uint8_t* tile = gs_smem;
@@ -209,7 +236,9 @@ __global__ void threshold_sobel_kernel(const uint8_t* __restrict__ src,
     const size_t off = base + static_cast<size_t>(y) * w + x;
     if (binary != nullptr) binary[off] = c[0];
     int mag = 0;
-    if (y >= 1 && y <= h - 2 && x >= 1 && x <= w - 2) {
+    const int fy = kWindow ? y + row0 : y;  // the frame's row
+    const int fh = kWindow ? h_total : h;
+    if (fy >= 1 && fy <= fh - 2 && x >= 1 && x <= w - 2) {
       const int nw = c[-kPitch - 1], n = c[-kPitch], ne = c[-kPitch + 1];
       const int west = c[-1], east = c[1];
       const int sw = c[kPitch - 1], s = c[kPitch], se = c[kPitch + 1];
@@ -246,6 +275,41 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+template <bool kWindow>
+int launch_blur_hist(const void* src, void* dst, void* hist, int n, int h, int w, int r, int row0,
+                     int h_total, int row_lo, int row_hi, void* stream) {
+  int tile_h;
+  size_t smem;
+  blur_geometry(h, w, r, 256 * sizeof(int), &tile_h, &smem);
+  const cudaError_t err = allow_smem(blur_hist_kernel<kWindow>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = tiles(w, kBlurTileW);
+  const int tiles_y = tiles(h, tile_h);
+  const long long blocks = static_cast<long long>(n) * tiles_x * tiles_y;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  blur_hist_kernel<kWindow><<<static_cast<unsigned>(blocks), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), static_cast<int*>(hist), h,
+      w, r, tile_h, tiles_x, tiles_y, row0, h_total, row_lo, row_hi);
+  return cudaGetLastError();
+}
+
+template <bool kWindow>
+int launch_threshold_sobel(const void* src, const void* thr, void* binary, void* edges, int n,
+                           int h, int w, int row0, int h_total, void* stream) {
+  const int tiles_x = tiles(w, kSobelTileW);
+  const int tiles_y = tiles(h, kSobelTileH);
+  const long long blocks = static_cast<long long>(n) * tiles_x * tiles_y;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem = (kSobelTileH + 2) * (kSobelTileW + 2);
+  threshold_sobel_kernel<kWindow><<<static_cast<unsigned>(blocks), kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(thr),
+      static_cast<uint8_t*>(binary), static_cast<uint8_t*>(edges), h, w, tiles_x, tiles_y, row0,
+      h_total);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -259,20 +323,18 @@ const char* gs_error_string(int code) {
 int gs_blur_hist(const void* src, void* dst, void* hist, int n, int h, int w, int r,
                  void* stream) {
   r = std::min(r, std::max(h, w));
-  int tile_h;
-  size_t smem;
-  blur_geometry(h, w, r, 256 * sizeof(int), &tile_h, &smem);
-  const cudaError_t err = allow_smem(blur_hist_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int tiles_x = tiles(w, kBlurTileW);
-  const int tiles_y = tiles(h, tile_h);
-  const long long blocks = static_cast<long long>(n) * tiles_x * tiles_y;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  blur_hist_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), static_cast<int*>(hist), h,
-      w, r, tile_h, tiles_x, tiles_y);
-  return cudaGetLastError();
+  return launch_blur_hist<false>(src, dst, hist, n, h, w, r, 0, h, 0, h, stream);
+}
+
+// src, dst: (n, h, w) uint8, one H-shard with its halo rows; hist: (n, 256)
+// int32, zeroed by the caller.  Array row y is frame row y + row0 of a frame of
+// h_total rows; the caller checks that every window's count is >= 1
+// (-r <= row0 and row0 + h <= h_total + r), that 0 <= row_lo <= row_hi <= h,
+// and clamps r to where every window is whole.
+int gs_blur_hist_window(const void* src, void* dst, void* hist, int n, int h, int w, int r,
+                        int row0, int h_total, int row_lo, int row_hi, void* stream) {
+  return launch_blur_hist<true>(src, dst, hist, n, h, w, r, row0, h_total, row_lo, row_hi,
+                                stream);
 }
 
 // src, dst: (n, h, w) uint8; c: the int32 offset.  Radius clamped as in gs_blur_hist.
@@ -298,16 +360,14 @@ int gs_adaptive(const void* src, void* dst, int n, int h, int w, int r, int c, v
 // (only with thr); edges: (n, h, w) uint8.
 int gs_threshold_sobel(const void* src, const void* thr, void* binary, void* edges, int n, int h,
                        int w, void* stream) {
-  const int tiles_x = tiles(w, kSobelTileW);
-  const int tiles_y = tiles(h, kSobelTileH);
-  const long long blocks = static_cast<long long>(n) * tiles_x * tiles_y;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const size_t smem = (kSobelTileH + 2) * (kSobelTileW + 2);
-  threshold_sobel_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(thr),
-      static_cast<uint8_t*>(binary), static_cast<uint8_t*>(edges), h, w, tiles_x, tiles_y);
-  return cudaGetLastError();
+  return launch_threshold_sobel<false>(src, thr, binary, edges, n, h, w, 0, h, stream);
+}
+
+// As gs_threshold_sobel on one H-shard with its 1-row halo: thr is (n,) uint8;
+// array row y is frame row y + row0 of a frame of h_total rows.
+int gs_threshold_sobel_window(const void* src, const void* thr, void* binary, void* edges, int n,
+                              int h, int w, int row0, int h_total, void* stream) {
+  return launch_threshold_sobel<true>(src, thr, binary, edges, n, h, w, row0, h_total, stream);
 }
 
 }  // extern "C"

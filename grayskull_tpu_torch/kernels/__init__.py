@@ -3,7 +3,9 @@
 * :mod:`.preproc` — K1 ``blur_hist`` (box blur + per-frame histogram),
   K2 ``threshold_sobel`` (per-frame binarize + interior Sobel), K11 ``adaptive``
   (mean-offset threshold on K1's window sum), K12 ``morph`` (3x3 erode or
-  dilate) and K13 ``filter3`` (the zero-padded 3x3 ``gs_filter``)
+  dilate), K13 ``filter3`` (the zero-padded 3x3 ``gs_filter``), and K15
+  ``blur_hist_window`` and K16 ``threshold_sobel_window`` (K1 and K2 on one
+  H-shard with its halo rows, at the frame's global rows)
 * :mod:`.otsu` — K3 ``otsu`` (the bit-exact float32 Otsu sweep, a thread per frame)
 * :mod:`.integral` — K4 ``integral`` (uint32 2-D prefix sum: row scan, column scan)
 * :mod:`.lbp` — K5 ``lbp_eval_scale`` (one ladder scale of the LBP cascade, a
@@ -14,6 +16,8 @@
 * :mod:`.ccl` — K9 ``ccl`` (4-connected component minima by union-find)
 * :mod:`.warp` — K10 ``quad_warp`` (the bilinear quad warp, a thread per page pixel)
 * :mod:`.resize` — K14 ``resize`` (the bilinear resize, a thread per output pixel)
+* :mod:`.bandwidth` — K17 ``copy`` and K18 ``triad`` (the device-memory
+  bandwidth probe, 16 bytes a thread)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -21,6 +25,7 @@ version for a CPU tensor.  :func:`launch_counts` reads how often each kernel was
 launched; :func:`reset_launch_counts` sets every count to 0.
 """
 
+from . import bandwidth as _bandwidth_mod
 from . import ccl as _ccl_mod
 from . import fast as _fast_mod
 from . import integral as _integral_mod
@@ -30,6 +35,7 @@ from . import patches as _patches_mod
 from . import preproc as _preproc_mod
 from . import resize as _resize_mod
 from . import warp as _warp_mod
+from .bandwidth import copy, copy_plain, triad, triad_plain  # noqa: F401
 from .ccl import ccl, ccl_plain  # noqa: F401
 from .fast import fast, fast_plain  # noqa: F401
 from .integral import integral, integral_plain  # noqa: F401
@@ -38,8 +44,10 @@ from .otsu import otsu, otsu_plain  # noqa: F401
 from .patches import (extract_patches_plain, orb_brief, orb_brief_plain,  # noqa: F401
                       orb_moments, orb_moments_plain)
 from .preproc import (adaptive, adaptive_plain, blur_hist, blur_hist_plain,  # noqa: F401
-                      filter3, filter3_plain, filter_plain, frame_histograms, morph, morph_plain,
-                      sobel_plain, threshold_sobel, threshold_sobel_plain)
+                      blur_hist_window, blur_hist_window_plain, filter3, filter3_plain,
+                      filter_plain, frame_histograms, morph, morph_plain, sobel_plain,
+                      threshold_sobel, threshold_sobel_plain, threshold_sobel_window,
+                      threshold_sobel_window_plain)
 from .resize import resize, resize_plain  # noqa: F401
 from .warp import quad_warp, quad_warp_plain  # noqa: F401
 
@@ -48,8 +56,12 @@ __all__ = [
     "adaptive_plain",
     "blur_hist",
     "blur_hist_plain",
+    "blur_hist_window",
+    "blur_hist_window_plain",
     "ccl",
     "ccl_plain",
+    "copy",
+    "copy_plain",
     "extract_patches_plain",
     "fast",
     "fast_plain",
@@ -78,11 +90,15 @@ __all__ = [
     "sobel_plain",
     "threshold_sobel",
     "threshold_sobel_plain",
+    "threshold_sobel_window",
+    "threshold_sobel_window_plain",
+    "triad",
+    "triad_plain",
 ]
 
 _COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
              _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches, _ccl_mod.launches,
-             _warp_mod.launches, _resize_mod.launches)
+             _warp_mod.launches, _resize_mod.launches, _bandwidth_mod.launches)
 
 
 def launch_counts() -> dict:

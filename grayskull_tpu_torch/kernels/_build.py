@@ -41,10 +41,13 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _UINT = ctypes.c_uint
+_SIZE = ctypes.c_size_t
 # C entry -> argument types; every pointer and the stream are c_void_p.
 _SIGNATURES = {
     "gs_blur_hist": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    "gs_blur_hist_window": (_PTR, _PTR, _PTR, *(_INT,) * 8, _PTR),
     "gs_threshold_sobel": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "gs_threshold_sobel_window": (_PTR, _PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
     "gs_otsu": (_PTR, _PTR, _INT, _INT, _PTR),
     "gs_integral": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "gs_lbp_eval_scale": (_PTR, _PTR, _PTR, *(_INT,) * 10, _PTR),
@@ -57,6 +60,8 @@ _SIGNATURES = {
     "gs_morph": (_PTR, _PTR, *(_INT,) * 4, _PTR),
     "gs_filter3": (_PTR, _PTR, *(_INT,) * 12, _UINT, _PTR),
     "gs_resize": (_PTR, _PTR, *(_INT,) * 5, _PTR),
+    "gs_copy": (_PTR, _PTR, _SIZE, _PTR),
+    "gs_triad": (_PTR, _PTR, _PTR, _SIZE, _PTR),
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,13 @@
 * :func:`filter3` (K13, ``csrc/stencil3.cu:gs_filter3``) replaces
   ``filter3_pallas``: the zero-padded 3x3 ``gs_filter`` with C's unsigned
   division of the sum and a clamp to 0..255.
+* :func:`blur_hist_window` (K15, ``csrc/preproc.cu:gs_blur_hist_window``)
+  replaces ``fused_blur_hist_window``: K1 on one H-shard extended by exchanged
+  halo rows, the window counts taken at global rows and the histogram over
+  the shard's own rows.
+* :func:`threshold_sobel_window` (K16, ``csrc/preproc.cu:gs_threshold_sobel_window``)
+  replaces ``fused_threshold_sobel_window``: K2 with thresholds on one H-shard
+  with a 1-row halo, the zero border at the global frame's edge.
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU tensor
 it runs the plain version (``*_plain``), which is also what the kernel is held
@@ -26,11 +33,14 @@ import torch
 
 from . import _build
 
-__all__ = ["adaptive", "adaptive_plain", "blur_hist", "blur_hist_plain", "filter3",
-           "filter3_plain", "filter_plain", "frame_histograms", "launches", "morph", "morph_plain",
-           "sobel_plain", "threshold_sobel", "threshold_sobel_plain"]
+__all__ = ["adaptive", "adaptive_plain", "blur_hist", "blur_hist_plain", "blur_hist_window",
+           "blur_hist_window_plain", "filter3", "filter3_plain", "filter_plain",
+           "frame_histograms", "launches", "morph", "morph_plain", "sobel_plain",
+           "threshold_sobel", "threshold_sobel_plain", "threshold_sobel_window",
+           "threshold_sobel_window_plain"]
 
-launches = {"blur_hist": 0, "threshold_sobel": 0, "adaptive": 0, "morph": 0, "filter3": 0}
+launches = {"blur_hist": 0, "threshold_sobel": 0, "adaptive": 0, "morph": 0, "filter3": 0,
+            "blur_hist_window": 0, "threshold_sobel_window": 0}
 
 _INT32_MAX = 2**31 - 1
 _MORPH_OPS = ("erode", "dilate")
@@ -52,6 +62,22 @@ def _check_radius(name: str, r: int, h: int, w: int) -> None:
         raise ValueError(f"{name}: radius must be >= 0, got {r}")
     if 255 * min(2 * r + 1, h) * min(2 * r + 1, w) > _INT32_MAX:
         raise ValueError(f"{name}: radius {r} on {h}x{w} frames overflows the int32 window sum")
+
+
+def _check_thresholds(name: str, thresholds: torch.Tensor, imgs: torch.Tensor) -> None:
+    n = imgs.shape[0]
+    if thresholds.dtype != torch.uint8 or tuple(thresholds.shape) != (n,):
+        raise ValueError(f"{name}: thresholds must be ({n},) uint8, got "
+                         f"{tuple(thresholds.shape)} {thresholds.dtype}")
+    if thresholds.device != imgs.device or not thresholds.is_contiguous():
+        raise ValueError(f"{name}: thresholds must be contiguous on the frames' device")
+
+
+def _check_rows(name: str, row0: int, h_total: int) -> None:
+    """The shard's global offset and the frame height stay far inside int32."""
+    if not 1 <= h_total < 2**30 or abs(row0) >= 2**30:
+        raise ValueError(f"{name}: need 1 <= h_total < 2^30 and |row0| < 2^30, got "
+                         f"h_total={h_total}, row0={row0}")
 
 
 # ---------------------------------------------------------------------------
@@ -79,17 +105,25 @@ def _clipped_window_sum(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
     return p.index_select(dim, hi) - p.index_select(dim, lo)
 
 
-def _window_counts(size: int, r: int, device) -> torch.Tensor:
-    idx = torch.arange(size, device=device)
-    return (idx + r).clamp(max=size - 1) - (idx - r).clamp(min=0) + 1
+def _window_counts(size: int, r: int, device, start: int = 0, total: int | None = None):
+    """Pixels of ``[i-r, i+r]`` inside ``[0, total)`` at the axis's positions
+    ``i = start .. start + size - 1`` (default: the axis itself)."""
+    total = size if total is None else total
+    idx = torch.arange(size, device=device) + start
+    return (idx + r).clamp(max=total - 1) - (idx - r).clamp(min=0) + 1
 
 
-def _clipped_mean(imgs: torch.Tensor, r: int) -> torch.Tensor:
-    """Clipped-window box mean with truncating division, int32 or int64."""
+def _clipped_mean(imgs: torch.Tensor, r: int, row0: int = 0,
+                  h_total: int | None = None) -> torch.Tensor:
+    """Clipped-window box mean with truncating division, int32 or int64.
+
+    The sums clip to the array; the counts' rows are the frame's rows
+    ``row0 ..`` of a frame of ``h_total`` rows (default: the array itself).
+    """
     n, h, w = imgs.shape
     wide = torch.int32 if 255 * h * w <= _INT32_MAX else torch.int64
     s = _clipped_window_sum(_clipped_window_sum(imgs.to(wide), r, 2), r, 1)
-    count = (_window_counts(h, r, imgs.device)[:, None]
+    count = (_window_counts(h, r, imgs.device, row0, h_total)[:, None]
              * _window_counts(w, r, imgs.device)[None, :]).to(wide)
     return torch.div(s, count, rounding_mode="floor")
 
@@ -98,6 +132,13 @@ def blur_hist_plain(imgs: torch.Tensor, radius: int, with_hist: bool = True):
     """Plain version of :func:`blur_hist`: ``(blurred, hist or None)``."""
     blurred = _clipped_mean(imgs, int(radius)).to(torch.uint8)
     return blurred, frame_histograms(blurred) if with_hist else None
+
+
+def blur_hist_window_plain(imgs_ext: torch.Tensor, row0: int, radius: int, *, h_total: int,
+                           row_lo: int, row_hi: int):
+    """Plain version of :func:`blur_hist_window`: ``(blurred_ext, hist)``."""
+    blurred = _clipped_mean(imgs_ext, int(radius), int(row0), int(h_total)).to(torch.uint8)
+    return blurred, frame_histograms(blurred[:, int(row_lo):int(row_hi)])
 
 
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -149,22 +190,28 @@ def filter_plain(imgs: torch.Tensor, taps, norm: int) -> torch.Tensor:
 filter3_plain = filter_plain  # K13's plain version: filter_plain with 3x3 taps
 
 
-def sobel_plain(imgs: torch.Tensor) -> torch.Tensor:
-    """Interior ``min((|gx|+|gy|)/2, 255)``, zero 1-pixel border, (N, H, W) uint8."""
-    out = torch.zeros_like(imgs)
+def sobel_plain(imgs: torch.Tensor, row0: int = 0, h_total: int | None = None) -> torch.Tensor:
+    """Interior ``min((|gx|+|gy|)/2, 255)``, zero 1-pixel border, (N, H, W) uint8.
+
+    Pixels outside the array read 0.  The border's rows are the frame's: array
+    row ``y`` is frame row ``y + row0`` of a frame of ``h_total`` rows (default:
+    the array itself).
+    """
     h, w = imgs.shape[-2:]
-    if h < 3 or w < 3:
-        return out
-    x = imgs.to(torch.int32)
+    total = h if h_total is None else h_total
+    x = torch.nn.functional.pad(imgs.to(torch.int32), (1, 1, 1, 1))
 
     def sh(dy, dx):
-        return x[:, 1 + dy : h - 1 + dy, 1 + dx : w - 1 + dx]
+        return x[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
 
     gx = -sh(-1, -1) + sh(-1, 1) - 2 * sh(0, -1) + 2 * sh(0, 1) - sh(1, -1) + sh(1, 1)
     gy = -sh(-1, -1) - 2 * sh(-1, 0) - sh(-1, 1) + sh(1, -1) + 2 * sh(1, 0) + sh(1, 1)
     mag = torch.div(gx.abs() + gy.abs(), 2, rounding_mode="floor").clamp_(max=255)
-    out[:, 1:-1, 1:-1] = mag.to(torch.uint8)
-    return out
+    rows = torch.arange(h, device=imgs.device) + row0
+    cols = torch.arange(w, device=imgs.device)
+    interior = (((rows >= 1) & (rows <= total - 2))[:, None]
+                & ((cols >= 1) & (cols <= w - 2))[None, :])
+    return torch.where(interior, mag, 0).to(torch.uint8)
 
 
 def threshold_sobel_plain(imgs: torch.Tensor, thresholds: torch.Tensor | None = None,
@@ -174,6 +221,13 @@ def threshold_sobel_plain(imgs: torch.Tensor, thresholds: torch.Tensor | None = 
         return None, sobel_plain(imgs)
     binary = (imgs > thresholds.view(-1, 1, 1)).to(torch.uint8) * 255
     return (binary if want_binary else None), sobel_plain(binary)
+
+
+def threshold_sobel_window_plain(blurred_ext: torch.Tensor, thresholds: torch.Tensor, row0: int,
+                                 *, h_total: int, want_binary: bool = True):
+    """Plain version of :func:`threshold_sobel_window`: ``(binary_ext or None, edges_ext)``."""
+    binary = (blurred_ext > thresholds.view(-1, 1, 1)).to(torch.uint8) * 255
+    return (binary if want_binary else None), sobel_plain(binary, int(row0), int(h_total))
 
 
 # ---------------------------------------------------------------------------
@@ -215,11 +269,7 @@ def threshold_sobel(imgs: torch.Tensor, thresholds: torch.Tensor | None = None,
     _check_frames(imgs, "threshold_sobel")
     n, h, w = imgs.shape
     if thresholds is not None:
-        if thresholds.dtype != torch.uint8 or tuple(thresholds.shape) != (n,):
-            raise ValueError(f"threshold_sobel: thresholds must be ({n},) uint8, got "
-                             f"{tuple(thresholds.shape)} {thresholds.dtype}")
-        if thresholds.device != imgs.device or not thresholds.is_contiguous():
-            raise ValueError("threshold_sobel: thresholds must be contiguous on the frames' device")
+        _check_thresholds("threshold_sobel", thresholds, imgs)
     if not imgs.is_cuda:
         return threshold_sobel_plain(imgs, thresholds, want_binary)
     lib = _build.library()
@@ -305,3 +355,81 @@ def filter3(imgs: torch.Tensor, taps, norm: int) -> torch.Tensor:
     _build.check(code, "filter3")
     launches["filter3"] += 1
     return out
+
+
+def blur_hist_window(imgs_ext: torch.Tensor, row0: int, radius: int, *, h_total: int,
+                     row_lo: int, row_hi: int):
+    """K15: one H-shard ``(N, h_ext, W)`` uint8 -> ``(blurred_ext, hist (N, 256) int32)``.
+
+    ``imgs_ext`` is a shard's rows with ``radius`` exchanged halo rows on each
+    side (zeros past the frame).  Array row ``y`` is frame row ``y + row0`` of
+    a frame of ``h_total`` rows (``row0`` may be negative): the window sums
+    clip to the array, their pixel counts to the frame.  The histogram counts
+    the blurred rows ``[row_lo, row_hi)`` of the array.  Every window must
+    count at least one frame row, so ``-radius <= row0`` and
+    ``row0 + h_ext <= h_total + radius``.  Any radius whose window sum fits int32.
+
+    A halo row past the frame is summed but not counted, so where it is not
+    zero (the exchange gives zeros) a mean can pass 255: the stored byte
+    wraps mod 256 and the histogram counts that byte.  The JAX kernel leaves
+    such a mean out of its histogram instead.
+    """
+    _check_frames(imgs_ext, "blur_hist_window")
+    n, h, w = imgs_ext.shape
+    r, row0, h_total = int(radius), int(row0), int(h_total)
+    row_lo, row_hi = int(row_lo), int(row_hi)
+    _check_radius("blur_hist_window", r, h, w)
+    _check_rows("blur_hist_window", row0, h_total)
+    if row0 < -r or row0 + h > h_total + r:
+        raise ValueError(f"blur_hist_window: rows {row0} .. {row0 + h - 1} of a {h_total}-row "
+                         f"frame leave a radius-{r} window with no frame row")
+    if not 0 <= row_lo <= row_hi <= h:
+        raise ValueError(f"blur_hist_window: need 0 <= row_lo <= row_hi <= {h}, got "
+                         f"{row_lo}, {row_hi}")
+    if not imgs_ext.is_cuda:
+        return blur_hist_window_plain(imgs_ext, row0, r, h_total=h_total, row_lo=row_lo,
+                                      row_hi=row_hi)
+    lib = _build.library()
+    blurred = torch.empty_like(imgs_ext)
+    hist = torch.zeros((n, 256), dtype=torch.int32, device=imgs_ext.device)
+    # past this radius every window spans the array, the row and the frame
+    whole = max(h, w, h_total - row0, row0 + h)
+    with torch.cuda.device(imgs_ext.device):
+        code = lib.gs_blur_hist_window(imgs_ext.data_ptr(), blurred.data_ptr(), hist.data_ptr(),
+                                       n, h, w, min(r, whole), row0, h_total, row_lo, row_hi,
+                                       _build.stream_of(imgs_ext))
+    _build.check(code, "blur_hist_window")
+    launches["blur_hist_window"] += 1
+    return blurred, hist
+
+
+def threshold_sobel_window(blurred_ext: torch.Tensor, thresholds: torch.Tensor, row0: int, *,
+                           h_total: int, want_binary: bool = True):
+    """K16: one H-shard ``(N, h_ext, W)`` uint8 and ``(N,)`` uint8 thresholds ->
+    ``(binary_ext or None, edges_ext)``.
+
+    Each frame is binarized ``p > t[n] ? 255 : 0``, then its Sobel magnitude
+    is taken; pixels outside the array read 0.  Array row ``y`` is frame row
+    ``y + row0`` of a frame of ``h_total`` rows, and only the frame's own
+    1-pixel border is zero, so a shard with a 1-row halo gets real edges at
+    its seams.
+    """
+    _check_frames(blurred_ext, "threshold_sobel_window")
+    n, h, w = blurred_ext.shape
+    row0, h_total = int(row0), int(h_total)
+    _check_thresholds("threshold_sobel_window", thresholds, blurred_ext)
+    _check_rows("threshold_sobel_window", row0, h_total)
+    if not blurred_ext.is_cuda:
+        return threshold_sobel_window_plain(blurred_ext, thresholds, row0, h_total=h_total,
+                                            want_binary=want_binary)
+    lib = _build.library()
+    edges = torch.empty_like(blurred_ext)
+    binary = torch.empty_like(blurred_ext) if want_binary else None
+    with torch.cuda.device(blurred_ext.device):
+        code = lib.gs_threshold_sobel_window(blurred_ext.data_ptr(), thresholds.data_ptr(),
+                                             None if binary is None else binary.data_ptr(),
+                                             edges.data_ptr(), n, h, w, row0, h_total,
+                                             _build.stream_of(blurred_ext))
+    _build.check(code, "threshold_sobel_window")
+    launches["threshold_sobel_window"] += 1
+    return binary, edges

@@ -72,13 +72,15 @@ def blobs(img, max_blobs: int, force_reference: bool = False):
     ``torch.uint16`` creation-order label map (0 = background, labels above
     ``max_blobs`` 0, as the JAX package's uint16 map wraps larger labels mod
     2^16); ``overflowed`` a bool, True when the frame has more seeds than
-    ``max_blobs``.  ``force_reference=True`` labels with the plain version.
+    ``max_blobs``.  ``max_blobs=0`` gives an empty table, an all-zero map and
+    ``overflowed`` wherever a frame has a seed, as in the JAX package.
+    ``force_reference=True`` labels with the plain version.
     """
     frames, single = _frames(img)
     n, h, w = frames.shape
     cap = int(max_blobs)
-    if cap < 1:
-        raise ValueError(f"max_blobs must be >= 1, got {cap}")
+    if cap < 0:
+        raise ValueError(f"max_blobs must be >= 0, got {cap}")
     dev = frames.device
     fg = frames >= 128
     no_col = torch.zeros((n, h, 1), dtype=torch.bool, device=dev)
@@ -101,7 +103,7 @@ def blobs(img, max_blobs: int, force_reference: bool = False):
     # per-(frame, label) statistics; label 0 gathers background and dropped
     # pixels.  A label's updates spread over ``lanes`` slots by pixel index,
     # reduced after: the atomics of a label that most pixels share (the
-    # background, a page) would otherwise serialise.
+    # background, a page) would otherwise serialise.  nseg >= 1, so lanes >= 1.
     nseg = cap + 1
     lanes = max(1, min(_STAT_LANES, _STAT_SLOTS // (n * nseg)))
     pix = torch.arange(h * w, device=dev, dtype=torch.int64)

@@ -54,6 +54,8 @@ def scan(img, out_size=(1000, 800), max_blobs: int = 1000, force_reference: bool
     frame with no blob warps from its centroid corners, as the JAX package
     does.
     """
+    if int(max_blobs) < 1:  # the largest blob of an empty table (JAX: argmax of nothing)
+        raise ValueError(f"scan needs max_blobs >= 1, got {max_blobs}")
     frames, single = _frames(img)
     out_size = (int(out_size[0]), int(out_size[1]))
     binary = _binarize(frames, force_reference)

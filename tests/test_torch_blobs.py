@@ -21,6 +21,7 @@ from grayskull_tpu.ops.blobs import blob_corners as jax_blob_corners
 from grayskull_tpu.ops.blobs import blobs as jax_blobs
 from grayskull_tpu.ops.blobs import label_components as jax_label_components
 from grayskull_tpu.pipelines.scan import preprocess_binarize as jax_preprocess_binarize
+from grayskull_tpu.pipelines.scan import scan as jax_scan
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.core import blobs_from_arrays
 from tests.test_torch_cuda import host_arrays_on_cpu, snake, spiral  # noqa: F401
@@ -169,7 +170,26 @@ def test_blobs_edge_cases():
     table, labels, overflowed = _same_blobs(checker, 4, "cap below the seeds")
     assert bool(overflowed) and int(table.n) == 4 and int(labels.to(torch.int32).max()) == 4
     with pytest.raises(ValueError):
-        gt.blobs(dot, 0)
+        gt.blobs(dot, -1)
+
+
+def test_blobs_capacity_zero(document_binary):
+    """``max_blobs=0``: an empty table, an all-zero label map, and
+    ``overflowed`` wherever a frame has a seed, as the JAX op returns."""
+    img = np.zeros((4, 4), np.uint8)
+    img[0, 0] = img[2, 2] = 255
+    for frame, seeds in ((img, True), (np.zeros((4, 5), np.uint8), False),
+                         (document_binary, True)):
+        table, labels, overflowed = _same_blobs(frame, 0, f"capacity 0, seeds={seeds}")
+        assert int(table.n) == 0 and tuple(table.label.shape) == (0,)
+        assert int(labels.to(torch.int32).max()) == 0 and bool(overflowed) == seeds
+    table, labels, overflowed = gt.blobs(np.stack([img, np.zeros_like(img)]), 0)
+    assert table.n.tolist() == [0, 0] and tuple(table.area.shape) == (2, 0)
+    assert overflowed.tolist() == [True, False] and not labels.any()
+    with pytest.raises(ValueError):  # the largest blob of an empty table
+        jax_scan(jnp.asarray(img), out_size=(8, 8), max_blobs=0)
+    with pytest.raises(ValueError):
+        gt.scan(img, out_size=(8, 8), max_blobs=0)
 
 
 def _leaves(table):

@@ -24,6 +24,8 @@ from grayskull_tpu_torch.ops.lbp import _grid_plan
 
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
 NO_DENSE = {"adaptive": 0, "morph": 0, "filter3": 0, "resize": 0}  # K11-K14 not launched
+NO_SHARDED = {"blur_hist_window": 0, "threshold_sobel_window": 0, "copy": 0,  # K15-K18 neither
+              "triad": 0}
 
 
 def otsu_edge_histograms():
@@ -127,7 +129,7 @@ def test_preprocess_launches_every_kernel_on_card(cuda_device):
     counts = K.launch_counts()
     assert counts == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 1, "integral": 0,
                       "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0, "orb_brief": 0,
-                      "ccl": 0, "quad_warp": 0, **NO_DENSE}
+                      "ccl": 0, "quad_warp": 0, **NO_DENSE, **NO_SHARDED}
     ref = gt.preprocess(imgs, force_reference=True)
     assert K.launch_counts() == counts
     for a, b in zip(out, ref):
@@ -199,7 +201,7 @@ def test_detect_faces_launches_its_kernels_on_card(cuda_device):
     assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0,
                                  "integral": 1, "lbp_eval_scale": nscales, "fast": 0,
                                  "orb_moments": 0, "orb_brief": 0, "ccl": 0, "quad_warp": 0,
-                                 **NO_DENSE}
+                                 **NO_DENSE, **NO_SHARDED}
     ref = gt.detect_faces(frames, step=2, force_reference=True)
     assert K.launch_counts()["lbp_eval_scale"] == nscales
     on_cpu = gt.detect_faces(frames.cpu(), step=2)
@@ -379,7 +381,8 @@ def test_scan_launches_its_kernels_on_card(cuda_device):
     pages, corners = gt.scan(frames.to(cuda_device))
     assert K.launch_counts() == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 0, "integral": 0,
                                  "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0,
-                                 "orb_brief": 0, "ccl": 1, "quad_warp": 1, **NO_DENSE}
+                                 "orb_brief": 0, "ccl": 1, "quad_warp": 1, **NO_DENSE,
+                                 **NO_SHARDED}
     ref = gt.scan(frames.to(cuda_device), force_reference=True)
     on_cpu = gt.scan(frames)
     for a, b, c in zip((pages, corners), ref, on_cpu):
@@ -439,7 +442,7 @@ def test_adaptive_morph_launches_its_kernels_on_card(cuda_device):
     assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0, "integral": 0,
                                  "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0,
                                  "orb_brief": 0, "ccl": 0, "quad_warp": 0, "adaptive": 1,
-                                 "morph": 2, "filter3": 0, "resize": 0}
+                                 "morph": 2, "filter3": 0, "resize": 0, **NO_SHARDED}
     on_cpu = gt.erode(gt.dilate(gt.adaptive_threshold(frames, 15, 5)))
     assert out.is_cuda and torch.equal(out.cpu(), on_cpu)
 
@@ -458,3 +461,54 @@ def test_cli_on_card_matches_cpu(cuda_device, tmp_path):
                 assert cli.main(["nanomagick", *args, lena, str(out)]) == 0
             paths.append(out)
         assert paths[0].read_bytes() == paths[1].read_bytes(), args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_window_kernels_match_plain_on_card(cuda_device, shape):
+    """K15 and K16 at the first, a middle and the last row offset of a frame 8
+    rows taller than the array (random halo rows: K15's means pass 255 there)."""
+    n, h, w = shape
+    imgs = _frames(shape, 70, cuda_device)
+    t = torch.from_numpy(np.arange(n, dtype=np.uint8) * 70 + 60).to(cuda_device)
+    h_total = h + 8
+    for r in (1, 2, 6, 16):
+        kw = {"h_total": h_total, "row_lo": min(r, h), "row_hi": max(min(r, h), h - r)}
+        for row0 in (-r, 4, h_total + r - h):
+            got = K.blur_hist_window(imgs, row0, r, **kw)
+            ref = K.blur_hist_window_plain(imgs, row0, r, **kw)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (r, row0)
+    for row0 in (-1, 4, h_total + 1 - h):
+        for want_binary in (True, False):
+            got = K.threshold_sobel_window(imgs, t, row0, h_total=h_total, want_binary=want_binary)
+            ref = K.threshold_sobel_window_plain(imgs, t, row0, h_total=h_total,
+                                                 want_binary=want_binary)
+            assert torch.equal(got[1], ref[1]) and (got[0] is None) == (ref[0] is None)
+            assert got[0] is None or torch.equal(got[0], ref[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 15, 17, 2**20 + 3, 2**26])
+def test_copy_and_triad_match_plain_on_card(cuda_device, size):
+    x, y = (_frames((size + 1,), 71 + i, cuda_device) for i in range(2))
+    for a, b in ((x[:size], y[:size]), (x[1:], y[1:])):  # 16-byte aligned, then one byte off
+        assert torch.equal(K.copy(a), K.copy_plain(a))
+        assert torch.equal(K.triad(a, b), K.triad_plain(a, b))
+
+
+@pytest.mark.cuda
+def test_sharded_preprocess_launches_on_card(cuda_device):
+    """A (1, 4) mesh of one card: K15 4 times, K3 once, K16 4 times, the
+    single-device result; the same on a CPU mesh."""
+    imgs = _frames((3, 256, 200), 72, cuda_device)
+    mesh = gt.parallel.make_mesh((1, 4), devices=[cuda_device] * 4)
+    K.reset_launch_counts()
+    out = gt.parallel.preprocess_spatial_shardmap(imgs, mesh, 3)
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    assert counts == {"blur_hist_window": 4, "otsu": 1, "threshold_sobel_window": 4}
+    on_cpu = gt.parallel.preprocess_spatial_shardmap(
+        imgs.cpu(), gt.parallel.make_mesh((1, 4), devices=["cpu"] * 4), 3)
+    for a, b, c in zip(out, gt.preprocess(imgs, 3), on_cpu):
+        assert a.is_cuda and torch.equal(a, b) and torch.equal(a.cpu(), c)
+    ii = gt.parallel.integral_sharded(imgs, mesh)
+    assert torch.equal(ii.view(torch.int32), gt.integral(imgs).view(torch.int32))

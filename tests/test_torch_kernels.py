@@ -114,10 +114,15 @@ def test_plain_runs_on_cpu_without_counting():
     K.morph(imgs, "erode")
     K.filter3(imgs, ((0, -1, 0), (-1, 5, -1), (0, -1, 0)), 1)
     K.resize(imgs, (5, 6))
+    K.blur_hist_window(imgs, -1, 1, h_total=10, row_lo=1, row_hi=9)
+    K.threshold_sobel_window(imgs, torch.zeros(1, dtype=torch.uint8), 3, h_total=20)
+    K.copy(imgs)
+    K.triad(imgs, imgs)
     assert K.launch_counts() == before
     assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale",
                            "fast", "orb_moments", "orb_brief", "ccl", "quad_warp", "adaptive",
-                           "morph", "filter3", "resize"}
+                           "morph", "filter3", "resize", "blur_hist_window",
+                           "threshold_sobel_window", "copy", "triad"}
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
@@ -228,7 +233,7 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
     srcs = _build.sources()
     assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu", "fast.cu",
                                       "patches.cu", "ccl.cu", "warp.cu", "stencil3.cu",
-                                      "resize.cu"}
+                                      "resize.cu", "bandwidth.cu"}
     for src in srcs:  # one nvcc per source, started together
         cmd = _build.compile_command(src, tmp_path / f"{src.stem}.o")
         assert cmd[0].endswith("nvcc")
@@ -250,7 +255,8 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
                                        "gs_integral", "gs_lbp_eval_scale", "gs_fast",
                                        "gs_orb_moments", "gs_orb_brief", "gs_ccl",
                                        "gs_quad_warp", "gs_adaptive", "gs_morph", "gs_filter3",
-                                       "gs_resize"}
+                                       "gs_resize", "gs_blur_hist_window",
+                                       "gs_threshold_sobel_window", "gs_copy", "gs_triad"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
