@@ -46,10 +46,13 @@ counts set to 0 just before it and read just after:
 * the bandwidth probe (``grayskull_tpu_torch.profiling.hbm_bandwidth_gbps``,
   K17 ``copy`` and K18 ``triad`` over 256 MiB).
 
-Then it times the paths with CUDA events, profiles the scanner, config #2,
-the resize and the sharded preprocess (``torch.profiler``: device time by
-kernel and op, idle share, host enqueue time) and takes K7's and K8's device
-time from the profiler.
+Then it times the paths with CUDA events, profiles preprocess, detect_faces,
+the scanner, config #2, the resize and the sharded preprocess
+(``torch.profiler``: device time by kernel and op, idle share, host enqueue
+time), takes K7's and K8's device time from the profiler, and measures K5's
+real work: each window's exit stage on two faces frames (the plain version
+with the cascade cut to its first s stages), the weaks a window runs and the
+divergence of 32 neighbouring windows, from which K5's bound is counted.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
@@ -60,6 +63,7 @@ non-zero; without a CUDA device it exits 1 and prints no result.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -84,8 +88,9 @@ from grayskull_tpu_torch.profiling import timeit
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 METRIC = "fused_blur_otsu_threshold_sobel_1MP_frames_per_sec"
-SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612), (4, 1024, 1024)]
-RADII = (1, 2, 6, 7, 16)
+SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612), (4, 1024, 1024),
+          (2, 64, 7), (1, 70, 1000)]  # widths 7, 129, 612 and 1000 are no multiples of 16
+RADII = (1, 2, 6, 7, 16, 40)
 MAIN_N, MAIN_H, MAIN_W, MAIN_R = 256, 1024, 1024, 2
 FACES_METRIC = "lbp_windows_per_sec"
 FACES_N, FACES_H, FACES_W, FACES_STEP, FACES_CAP = 32, 480, 640, 1, 100
@@ -174,7 +179,7 @@ RESIZE_CASES = [((1024, 1024), (480, 640)), ((480, 640), (768, 1024)), ((480, 64
 RESIZE_N, RESIZE_TO = 256, (480, 640)
 SHARDED_KERNELS = ("blur_hist_window", "otsu", "threshold_sobel_window")
 BANDWIDTH_KERNELS = ("copy", "triad")
-WINDOW_RADII = (1, 2, 6, 16)
+WINDOW_RADII = (1, 2, 6, 16, 40)
 BANDWIDTH_SIZES = (1, 15, 17, 2**20 + 3, 2**28)  # bytes: tails past whole 16-byte words
 SPACE = 4  # shards a frame's rows split into on the main sharded mesh
 PREPROCESS_OUTPUTS = ("blurred", "binary", "edges", "thresholds")
@@ -397,6 +402,8 @@ def phase_timing(batch, card):
              lambda: K.threshold_sobel_plain(batch), 15 * px)):
         emit("kernel_time", card=card, kernel=name, shape=list(batch.shape),
              **kernel_entry(timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3, 2 * px, ops))
+    emit("preprocess_profile", card=card, entry=f"preprocess, {MAIN_N} x 1 MP, r = {MAIN_R}",
+         **profile_calls(gt.preprocess, batch, MAIN_R))
     emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     return times
 
@@ -418,6 +425,19 @@ def synthetic_cascade():
         stage_nweaks=np.array([1, 3], np.uint16),
         stage_threshold=np.array([-0.2, 0.1], np.float32),
     )
+
+
+def uniform_cascade(cascade, threshold):
+    """``cascade`` with every stage threshold set to ``threshold``."""
+    return dataclasses.replace(cascade, stage_threshold=np.full(cascade.nstages, threshold,
+                                                                np.float32))
+
+
+def first_stages(cascade, s):
+    """``cascade`` cut to its first ``s`` stages."""
+    return dataclasses.replace(cascade, stage_weak_start=cascade.stage_weak_start[:s],
+                               stage_nweaks=cascade.stage_nweaks[:s],
+                               stage_threshold=cascade.stage_threshold[:s])
 
 
 def faces_args(cascade):
@@ -450,6 +470,32 @@ def phase_faces_kernels(chk, rng, dev):
         chk.same("lbp_eval_scale", K.lbp_eval_scale(cascade, ii, 1.0, 1, 1, 1, (y, x)),
                  K.lbp_eval_scale_plain(cascade, ii, 1.0, 1, 1, 1, (y, x)), f"window ({y}, {x})")
 
+    # the four corner windows of the first and the last ladder scale, through lbp_window
+    plan = _grid_plan(cascade, FACES_H, FACES_W, *LADDER, 1)
+    for scale, win_w, win_h, _, _ in (plan[0], plan[-1]):
+        for y, x in ((0, 0), (0, FACES_W - win_w), (FACES_H - win_h, 0),
+                     (FACES_H - win_h, FACES_W - win_w)):
+            chk.same("lbp_eval_scale", gt.lbp_window(cascade, ii[1], x, y, scale),
+                     gt.lbp_window(cascade, ii[1].cpu(), x, y, scale).to(dev),
+                     f"lbp_window scale={scale} ({y}, {x})")
+    # every window passes every stage (full queues), or fails stage 0 (empty queues)
+    cases = {"all pass": uniform_cascade(cascade, -np.inf), "all fail": uniform_cascade(cascade, np.inf)}
+    for name, cas in cases.items():
+        for scale, _, _, ny, nx in plan:
+            got = K.lbp_eval_scale(cas, ii, scale, ny, nx, 1)
+            chk.same("lbp_eval_scale", got, K.lbp_eval_scale_plain(cas, ii, scale, ny, nx, 1),
+                     f"{name} scale={scale}")
+            if bool(got.all()) != (name == "all pass") or bool(got.any()) != (name == "all pass"):
+                raise AssertionError(f"lbp_eval_scale {name} scale={scale}: wrong hits")
+    # a frame smaller than one tile, and 97x200 at steps 1-3
+    for shape, steps in (((2, 30, 40), (1,)), ((2, 97, 200), (1, 2, 3))):
+        small = K.integral(torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev))
+        for step in steps:
+            for scale, _, _, ny, nx in _grid_plan(cascade, *shape[1:], *LADDER, step):
+                chk.same("lbp_eval_scale", K.lbp_eval_scale(cascade, small, scale, ny, nx, step),
+                         K.lbp_eval_scale_plain(cascade, small, scale, ny, nx, step),
+                         f"{shape} scale={scale} step={step}")
+
     syn = synthetic_cascade()
     sii = K.integral(torch.from_numpy(rng.integers(0, 256, (2, 40, 256), dtype=np.uint8)).to(dev))
     for scale in (1.0, 1.5):
@@ -462,6 +508,8 @@ def phase_faces_kernels(chk, rng, dev):
     torch.cuda.synchronize()
     emit("faces_kernels_vs_plain", ok=True, integral_shapes=[list(s) for s in INTEGRAL_SHAPES],
          wrap_corner=wrap_corner, lena_hits=hits,
+         edge_cases=["lbp_window at the four corners of the first and last scale",
+                     "all pass", "all fail at stage 0", "2x30x40", "2x97x200 steps 1-3"],
          checks={k: chk.checks[k] for k in FACES_KERNELS},
          max_abs_err={k: chk.max_err[k] for k in FACES_KERNELS})
 
@@ -522,7 +570,53 @@ def phase_faces_path(chk, dev):
     return batch, launches
 
 
-def phase_faces_timing(batch, card):
+def phase_faces_work(batch):
+    """K5's real work: the plain version on frames 0 and 31 of the faces batch
+    with the cascade cut to its first s stages, s = 1 .. nstages, gives each
+    window's exit stage (the stages it passed) and so the weaks it runs.  Per
+    scale: the exit-stage counts, the mean weaks a window, the divergence factor
+    (the mean over groups of 32 windows along x of max / mean weaks) and the
+    warp-weaks a thread per window and 64x32 tiles compacted per stage pay."""
+    cascade = gt.load_frontalface()
+    frames = [0, FACES_N - 1]
+    ii = K.integral(batch[frames])
+    nst = cascade.nstages
+    nweaks = cascade.stage_nweaks.astype(np.int64)
+    cum = torch.from_numpy(np.concatenate([[0], np.cumsum(nweaks)])).to(batch.device)
+    cuts = [first_stages(cascade, s) for s in range(1, nst + 1)]
+    scales, total = [], 0
+    for scale, _, _, ny, nx in _grid_plan(cascade, FACES_H, FACES_W, *LADDER, FACES_STEP):
+        passed = sum(K.lbp_eval_scale_plain(c, ii, scale, ny, nx, FACES_STEP).to(torch.int64)
+                     for c in cuts)
+        weaks = cum[(passed + 1).clamp(max=nst)].cpu().numpy()
+        p = passed.cpu().numpy()
+        groups, pad = -(-nx // 32), -nx % 32
+        wmax = np.pad(weaks, ((0, 0), (0, 0), (0, pad)), constant_values=-1).reshape(
+            len(frames), ny, groups, 32).max(-1)
+        wsum = np.pad(weaks, ((0, 0), (0, 0), (0, pad))).reshape(len(frames), ny, groups, 32).sum(-1)
+        count = np.full(groups, 32)
+        count[-1] = 32 - pad
+        tiles = np.pad(p, ((0, 0), (0, -ny % 32), (0, -nx % 64)), constant_values=-1).reshape(
+            len(frames), -(-ny // 32), 32, -(-nx // 64), 64)
+        compacted = sum(int((-(-(tiles >= s).sum(axis=(2, 4)) // 32)).sum()) * int(nweaks[s])
+                        for s in range(nst))
+        total += int(weaks.sum())
+        scales.append({"scale": scale, "ny": ny, "nx": nx, "windows": int(weaks.size),
+                       "exit_stage_counts": np.bincount(p.reshape(-1), minlength=nst + 1).tolist(),
+                       "mean_weaks": float(weaks.mean()),
+                       "divergence_factor": float((wmax / (wsum / count)).mean()),
+                       "warp_weaks_thread_per_window": int(wmax.sum()),
+                       "warp_weaks_compacted_64x32": compacted})
+    torch.cuda.synchronize()
+    work = {"frames": frames, "weaks": total, "weaks_per_batch": total * FACES_N // len(frames),
+            "scales": scales}
+    emit("faces_k5_work", **work,
+         note="exit_stage_counts[s]: windows that passed s stages (the last entry: all of them); "
+              "weaks_per_batch scales the two frames' weaks to the 32 frames")
+    return work
+
+
+def phase_faces_timing(batch, card, work):
     cascade = gt.load_frontalface()
     plan = _grid_plan(cascade, FACES_H, FACES_W, *LADDER, FACES_STEP)
     nwin = sum(ny * nx for *_, ny, nx in plan)
@@ -542,10 +636,12 @@ def phase_faces_timing(batch, card):
         return [evaluate(cascade, ii, scale, ny, nx, FACES_STEP) for scale, _, _, ny, nx in plan]
 
     px = batch.numel()
-    # K5 reads the integral once a scale and writes a hit a window; every window
-    # runs at least stage 0, about 40 integer operations a weak (16 corner reads,
-    # 9 block sums, 8 compares, the subset test, the float add)
+    # K5 reads the integral once a scale and writes a hit a window; a weak is
+    # about 40 integer operations (16 corner reads, 9 block sums, 8 compares,
+    # the subset test, the float add), counted over the weaks this batch's
+    # windows run (from phase_faces_work) and, beside it, over stage 0 alone
     stage0 = int(cascade.stage_nweaks[0])
+    stage0_ops = FACES_N * nwin * stage0 * 40
     times = {
         "integral": kernel_entry(timeit(K.integral, batch) * 1e3,
                                  timeit(K.integral_plain, batch, iters=3) * 1e3,
@@ -554,12 +650,20 @@ def phase_faces_timing(batch, card):
         "lbp_eval_scale": kernel_entry(
             timeit(k5, K.lbp_eval_scale) * 1e3,
             timeit(k5, K.lbp_eval_scale_plain, iters=1, warmup=1, repeat=1) * 1e3,
-            len(plan) * 4 * px + FACES_N * nwin, FACES_N * nwin * stage0 * 40, None,
+            len(plan) * 4 * px + FACES_N * nwin, work["weaks_per_batch"] * 40, None,
             "none: no PyTorch call evaluates an LBP cascade"),
     }
+    times["lbp_eval_scale"]["bound_ms_stage0"] = stage0_ops / OPS_PER_S * 1e3
+    # the same launches with the cascade cut to stage 0: the fixed part and stage 0
+    cut = first_stages(cascade, 1)
+    times["lbp_eval_scale"]["stage0_only_ms"] = timeit(
+        lambda: [K.lbp_eval_scale(cut, ii, scale, ny, nx, FACES_STEP)
+                 for scale, _, _, ny, nx in plan]) * 1e3
     for name, entry in times.items():
         emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), **entry,
              **({"summed_over_scales": len(plan)} if name == "lbp_eval_scale" else {}))
+    emit("faces_profile", card=card, entry=f"detect_faces, {FACES_N} x 640x480, step 1",
+         **profile_calls(gt.detect_faces, batch, *faces_args(cascade)))
     emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     return times
 
@@ -1464,7 +1568,7 @@ def main():
     times.update(phase_timing(batch, card))
     times.update(phase_sharded_timing(batch, card))
     del batch
-    times.update(phase_faces_timing(faces_batch, card))
+    times.update(phase_faces_timing(faces_batch, card, phase_faces_work(faces_batch)))
     times.update(phase_orb_timing(orb_frames, card))
     phase_orb_device_time(orb_frames, times, card)
     times.update(phase_scan_timing(scan_batch, scan_corners, card))

@@ -13,10 +13,10 @@
 //    optionally writes that map), then takes the interior Sobel magnitude
 //    min((|gx|+|gy|)/2, 255) with a zero 1-pixel border.
 // K11 gs_adaptive replaces adaptive_pallas (:515, body _adaptive_kernel :414),
-//    gs_adaptive_threshold: `src > (int)(sum / count) - c ? 255 : 0` with K1's
-//    clipped window sum (the same column-sum stage, as _adaptive_kernel shares
-//    _blur_block), an unsigned division, then an int32 subtraction and compare.
-//    No radius gate: any radius whose window sum fits int32, as K1.
+//    gs_adaptive_threshold: `src > (int)(sum / count) - c ? 255 : 0` with the
+//    clipped window sum of column_sums/window_mean (a thread walks each column
+//    of a 128x64 tile), an unsigned division, then an int32 subtraction and
+//    compare.  No radius gate: any radius whose window sum fits int32, as K1.
 // K15 gs_blur_hist_window replaces fused_blur_hist_window (:351, body
 //    _blur_hist_window_kernel :307): K1 on one H-shard that carries r exchanged
 //    halo rows on each side.  The column sums clip to the array's rows; the
@@ -29,20 +29,28 @@
 //    K15 and K16 are K1's and K2's kernels instantiated with kWindow = true,
 //    so the shared code cannot drift and K1/K2 compile as before.
 //
-// What bounds them: both are memory-bound.  Per pixel K1 reads 1 B and writes
-// 1 B (plus a few shared-memory atomics for the histogram); K2 reads 1 B and
-// writes 1-2 B.  The arithmetic (a handful of integer adds and one integer
-// divide per pixel) is far below the card's rate.
+// What bounds them: by bytes, all are memory-bound: per pixel K1 reads 1 B and
+// writes 1 B, K2 reads 1 B and writes 1-2 B.  In practice they are bound by
+// instructions, shared-memory traffic and latency: a serial walk down each
+// column, a branch or a byte load per pixel, or a 32-bit divide per output
+// costs more than the pixel's bytes.
 //
-// What the design does about it: each block owns one output tile of one frame,
-// reads the tile and its halo once into shared memory, and writes each output
-// byte once, so device memory sees close to the minimal 2-3 B/pixel (halo rows
-// and columns are re-read by the neighbouring tile, mostly from L2).  The
-// histogram is counted in shared memory and flushed with one global atomic per
-// non-empty bin per block; integer atomics give the same counts in any order.
-// Unlike the TPU kernels there is no block-divisibility, lane-width or radius
-// gate: every tile masks its own ragged edge, only in-frame pixels are counted,
-// and the division is a plain unsigned integer divide.
+// What the design does about it.  Every block owns one output tile of one
+// frame and writes each output byte once; halo rows and columns are re-read by
+// the neighbouring tile, mostly from L2.  K1/K15 (blur_hist_kernel) stage the
+// tile's rows and columns with their halo in shared memory with 16-byte
+// cp.async copies, take column sums a column a thread (its rows cut into segments
+// where the tile has at most half as many columns as threads), then make 16
+// consecutive outputs a thread by sliding the row sum in registers, divide
+// exactly by a multiply-high with one correction, store
+// the 16 bytes as one vector and count them with shared atomics (faster here
+// than aggregating a warp's equal bytes with __match_any_sync).  Interior
+// windows take a path without branches.  K11 keeps column_sums/window_mean,
+// K2/K16 a 128x32 tile with a 1-pixel halo.
+// Histograms are flushed with one global atomic per non-empty bin per block;
+// integer atomics give the same counts in any order.  Unlike the TPU kernels
+// there is no block-divisibility, lane-width or radius gate: every tile masks
+// its own ragged edge and only in-frame pixels are counted.
 //
 // All offsets into frames are size_t.  Each entry returns cudaGetLastError().
 
@@ -54,12 +62,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlurTileW = 128;
-constexpr int kBlurTileH = 64;
+constexpr int kBlurTileW = 128;  // output columns a block of K1, K11, K15
+constexpr int kBlurTileH = 64;   // output rows a block, at most
 constexpr int kSobelTileW = 128;
 constexpr int kSobelTileH = 32;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kBoxSmemBudget = 96 * 1024;  // K1/K15: two blocks an SM at the largest radii
 
 // One block's tile of a blur-shaped kernel: the frame, its tile_h x kBlurTileW
 // output rectangle and the tile's columns widened by r on each side (clipped).
@@ -124,46 +133,249 @@ __device__ __forceinline__ unsigned window_mean(const int* colsum, const BlurTil
   return s / (cy * cx);
 }
 
-// Grid: one block per (frame, tile_y, tile_x), flattened into blockIdx.x.
-// Shared memory: 256 int histogram bins, then tile_h rows of vertical window
-// sums over the tile's columns widened by r on each side (clipped to the frame).
-// K1 is kWindow = false (row0, h_total, row_lo and row_hi unused); K15 is
-// kWindow = true: counts at global rows, histogram of rows [row_lo, row_hi).
+// The multiplier of div_exact for the divisor d >= 1: floor((2^32 - 1) / d) + 1,
+// which is ceil(2^32 / d) but for a power of two, where it is 2^32 / d; for
+// d = 1, where that is 2^32, it is 2^32 - 1.
+__device__ __forceinline__ unsigned div_magic(unsigned d) {
+  return d == 1u ? 0xffffffffu : 0xffffffffu / d + 1u;
+}
+
+// Exact truncating s / d for any uint32 s and d >= 1 from m = div_magic(d).
+// With e = m*d - 2^32 in [-1, d), q' = floor(s*m / 2^32) differs from s/d by
+// s*e / (d*2^32), less than 1 in size, so q' is the quotient or one off it;
+// one step each way, without a branch, corrects it (q'*d and (q'+1)*d may
+// pass 2^32, so they are compared in 64 bits).
+__device__ __forceinline__ unsigned div_exact(unsigned s, unsigned d, unsigned m) {
+  const unsigned q = __umulhi(s, m);
+  const unsigned long long qd = static_cast<unsigned long long>(q) * d;
+  return q - (qd > s) + (qd + d <= s);
+}
+
+// Copies 16 bytes from global to shared memory without passing through
+// registers (cp.async: a thread keeps its copies in flight); both addresses
+// are 16-byte aligned.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
+#endif
+}
+
+// Waits for this thread's copy16_async copies; a barrier then publishes them.
+__device__ __forceinline__ void copy_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// A frame's bytes at (y, x): from the block's staged rows and columns, or from
+// the frame in global memory where the staged band would not fit.
+struct StagedBytes {
+  const uint8_t* p;  // the staged band; its (0, 0) is frame (y0, x0)
+  int pitch, y0, x0;
+  __device__ __forceinline__ unsigned operator()(int y, int x) const {
+    return p[(y - y0) * pitch + (x - x0)];
+  }
+};
+
+struct FrameBytes {
+  const uint8_t* p;
+  int w;
+  __device__ __forceinline__ unsigned operator()(int y, int x) const {
+    return p[static_cast<size_t>(y) * w + x];
+  }
+};
+
+// Vertical pass of K1/K15: the clipped (2r+1)-row window sum of columns
+// [cx0, cx0 + sw) at the tile's rows y0 .. y0 + rows - 1, into colsum (pitch
+// swp).  Work item (column, segment of rows): a thread sums the window at the
+// segment's first row, then slides it down the segment; a column is cut into
+// segments only where the tile has at most half as many columns as threads.
+// Reads stay within rows [y_first, y_last], the rows the block may read.
+template <class Read>
+__device__ __forceinline__ void box_columns(const Read& rd, int* colsum, int swp, int sw, int cx0,
+                                            int y0, int rows, int h, int r, int y_first,
+                                            int y_last) {
+  const int want = max(1, min(rows, kThreads / sw));
+  const int seg = (rows + want - 1) / want;
+  const int nseg = (rows + seg - 1) / seg;  // every segment starts inside the tile
+  for (int idx = threadIdx.x; idx < sw * nseg; idx += blockDim.x) {
+    const int g = idx / sw;
+    const int c = idx - g * sw;
+    const int i_lo = g * seg;
+    const int i_hi = min(i_lo + seg, rows);
+    const int x = cx0 + c;
+    const int ys = y0 + i_lo;
+    unsigned s = 0;
+    for (int y = max(ys - r, 0); y <= min(ys + r, h - 1); ++y) s += rd(y, x);
+    int* out = colsum + c;
+    if (ys - r >= 0 && y0 + i_hi - 1 + r <= h - 1) {
+      // every row the window slides over is in the frame
+      int i = i_lo;
+      for (; i + 1 < i_hi; ++i) {
+        out[i * swp] = static_cast<int>(s);
+        s += rd(y0 + i + 1 + r, x) - rd(y0 + i - r, x);
+      }
+      out[i * swp] = static_cast<int>(s);
+    } else {
+      // near the frame's top or bottom: the entering and leaving rows are read
+      // at clamped rows and dropped where they lie past the frame (or past the
+      // segment, where the sum is not used again)
+      for (int i = i_lo; i < i_hi; ++i) {
+        out[i * swp] = static_cast<int>(s);
+        const int y = y0 + i;
+        const unsigned in = rd(min(y + 1 + r, y_last), x);
+        const unsigned gone = rd(max(y - r, y_first), x);
+        s += (y + 1 + r <= h - 1 ? in : 0u) - (y - r >= 0 ? gone : 0u);
+      }
+    }
+  }
+}
+
+// K1 (kWindow = false) and K15 (kWindow = true).  Grid: one block per (frame,
+// tile_y, tile_x), flattened into blockIdx.x; the tile is kBlurTileW x tile_h
+// outputs.  Shared memory: 256 histogram bins; tile_h rows of column sums over
+// the tile's columns widened by r on each side (clipped; an odd pitch, so the
+// row pass's lanes, one row each, fall in different banks); with `staged`, the
+// frame's rows [y0 - r, y1 + r) of those columns (clipped), loaded as 16-byte
+// vectors where the width allows.  The row pass: each thread makes 16
+// consecutive outputs by sliding the row sum over the column sums, divides
+// exactly (div_exact), stores them as one 16-byte word where aligned, and
+// counts them in the block's histogram with shared atomics.  Where every
+// window of a segment (vertical) or of the 16 outputs (row) is whole, the
+// pass runs without a branch: one count and its multiplier, one correction
+// down.  Near the frame's edges the loads go to clamped indices and their
+// values are selected.  K15's counts are taken at global rows (row0,
+// h_total) and its histogram counts the stored byte of rows [row_lo, row_hi).
 template <bool kWindow>
-__global__ void blur_hist_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                                 int* __restrict__ hist, int h, int w, int r, int tile_h,
-                                 int tiles_x, int tiles_y, int row0, int h_total, int row_lo,
-                                 int row_hi) {
+__global__ void __launch_bounds__(kThreads)
+    blur_hist_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+                     int* __restrict__ hist, int h, int w, int r, int tile_h, int tiles_x,
+                     int tiles_y, int staged, int row0, int h_total, int row_lo, int row_hi) {
   extern __shared__ __align__(16) unsigned char gs_smem[];
+  const int per_frame = tiles_x * tiles_y;
+  const int f = blockIdx.x / per_frame;
+  const int k = blockIdx.x - f * per_frame;
+  const int ty = k / tiles_x;
+  const int x0 = (k - ty * tiles_x) * kBlurTileW;
+  const int y0 = ty * tile_h;
+  const int x1 = min(x0 + kBlurTileW, w);
+  const int y1 = min(y0 + tile_h, h);
+  const int rows = y1 - y0;
+  const int cx0 = max(x0 - r, 0);
+  const int cx1 = min(x1 + r, w);
+  const int sw = cx1 - cx0;
+  const int swp = sw | 1;
+  const int sw_max = min(kBlurTileW + 2 * r, w);
+  const size_t frame_off = static_cast<size_t>(f) * h * w;
+  const uint8_t* frame = src + frame_off;
+
   int* shist = reinterpret_cast<int*>(gs_smem);
   int* colsum = shist + 256;
-  const BlurTile t = blur_tile(h, w, r, tile_h, tiles_x, tiles_y);
-
-  if (hist != nullptr) {
+  uint8_t* band = gs_smem + ((256 + tile_h * (sw_max | 1)) * sizeof(int) + 15) / 16 * 16;
+  const bool with_hist = hist != nullptr;
+  if (with_hist) {
     for (int b = threadIdx.x; b < 256; b += blockDim.x) shist[b] = 0;
   }
-  column_sums(src + t.base, colsum, t, h, w, r);
+  const int ry0 = max(y0 - r, 0);  // the frame rows the block reads
+  const int ry1 = min(y1 + r, h);
+  if (staged) {
+    const int nr = ry1 - ry0;
+    const int pitch = (sw_max + 30 + 15) / 16 * 16;
+    const bool vec = (w & 15) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    const int a0 = vec ? (cx0 & ~15) : cx0;
+    const int a1 = vec ? min((cx1 + 15) & ~15, w) : cx1;
+    if (vec) {
+      const int chunks = (a1 - a0) >> 4;
+      for (int idx = threadIdx.x; idx < nr * chunks; idx += blockDim.x) {
+        const int row = idx / chunks;
+        const int ch = idx - row * chunks;
+        copy16_async(band + row * pitch + ch * 16,
+                     frame + static_cast<size_t>(ry0 + row) * w + a0 + ch * 16);
+      }
+    } else {
+      const int span = a1 - a0;
+      for (int idx = threadIdx.x; idx < nr * span; idx += blockDim.x) {
+        const int row = idx / span;
+        const int c = idx - row * span;
+        band[row * pitch + c] = frame[static_cast<size_t>(ry0 + row) * w + a0 + c];
+      }
+    }
+    copy_async_wait();
+    __syncthreads();
+    box_columns(StagedBytes{band, pitch, ry0, a0}, colsum, swp, sw, cx0, y0, rows, h, r, ry0,
+                ry1 - 1);
+  } else {
+    box_columns(FrameBytes{frame, w}, colsum, swp, sw, cx0, y0, rows, h, r, ry0, ry1 - 1);
+  }
   __syncthreads();
 
-  // Horizontal pass, clipped-count division and histogram.
-  for (int idx = threadIdx.x; idx < t.rows * t.tw; idx += blockDim.x) {
-    const int i = idx / t.tw;
-    const int x = t.x0 + (idx - i * t.tw);
-    const int y = t.y0 + i;
-    const unsigned v = kWindow ? window_mean(colsum, t, i, x, row0, h_total, w, r)
-                               : window_mean(colsum, t, i, x, 0, h, w, r);
-    dst[t.base + static_cast<size_t>(y) * w + x] = static_cast<uint8_t>(v);
-    // K15's mean passes 255 when a summed halo row past the frame is not 0
-    // (the count leaves it out); the stored byte, mod 256, is what is counted
-    if (hist != nullptr && (!kWindow || (y >= row_lo && y < row_hi))) {
-      atomicAdd(&shist[kWindow ? v & 255u : v], 1);
+  const int groups = (x1 - x0 + 15) / 16;
+  const int total = rows * groups;
+  const bool vec_out = (w & 15) == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+  for (int item = threadIdx.x; item < total; item += blockDim.x) {
+    const int g = item / rows;
+    const int i = item - g * rows;
+    const int xs = x0 + 16 * g;
+    const int nout = min(16, x1 - xs);
+    const int y = y0 + i;
+    const int yg = kWindow ? y + row0 : y;
+    const int ht = kWindow ? h_total : h;
+    const unsigned cy = static_cast<unsigned>(min(yg + r, ht - 1) - max(yg - r, 0) + 1);
+    const int* row = colsum + i * swp - cx0;  // indexed by frame column
+    const bool counted = with_hist && (!kWindow || (y >= row_lo && y < row_hi));
+    unsigned s = 0;
+    for (int c = max(xs - r, 0); c <= min(xs + r, w - 1); ++c) s += static_cast<unsigned>(row[c]);
+    const unsigned d0 = cy * static_cast<unsigned>(2 * r + 1);  // an interior output's count
+    unsigned word[4] = {0u, 0u, 0u, 0u};
+    if (xs - r >= 0 && xs + 15 + r <= w - 1 && d0 >= 2u) {
+      // all 16 windows whole along the row: one count, its magic number, and
+      // one correction down (the estimate is never low for d >= 2; q*d < 2^32)
+      const unsigned m0 = div_magic(d0);
+      const int* enter = row + xs + 1 + r;
+      const int* leave = row + xs - r;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        unsigned q = __umulhi(s, m0);
+        q -= q * d0 > s;
+        const unsigned v = q & 255u;  // K15 past the frame: the stored byte
+        word[j >> 2] |= v << (8 * (j & 3));
+        if (counted) atomicAdd(&shist[v], 1);
+        if (j < 15) s += static_cast<unsigned>(enter[j]) - static_cast<unsigned>(leave[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int x = xs + j;
+        const int xc = min(x, w - 1);  // past the tile's last output the value is not used
+        const unsigned d = cy * static_cast<unsigned>(min(xc + r, w - 1) - max(xc - r, 0) + 1);
+        const unsigned v = div_exact(s, d, div_magic(d)) & 255u;
+        word[j >> 2] |= v << (8 * (j & 3));
+        if (counted && j < nout) atomicAdd(&shist[v], 1);
+        // the next window: column x+1+r enters, x-r leaves; reads are clamped to
+        // the strip (where the sum is not used again) and values past the frame dropped
+        const unsigned in = static_cast<unsigned>(row[min(x + 1 + r, cx1 - 1)]);
+        const unsigned gone = static_cast<unsigned>(row[min(max(x - r, cx0), cx1 - 1)]);
+        s += (x + 1 + r <= w - 1 ? in : 0u) - (x - r >= 0 ? gone : 0u);
+      }
+    }
+    uint8_t* out = dst + frame_off + static_cast<size_t>(y) * w + xs;
+    if (nout == 16 && vec_out) {
+      *reinterpret_cast<uint4*>(out) = make_uint4(word[0], word[1], word[2], word[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (j < nout) out[j] = static_cast<uint8_t>(word[j >> 2] >> (8 * (j & 3)));
+      }
     }
   }
 
-  if (hist != nullptr) {
+  if (with_hist) {
     __syncthreads();
     for (int b = threadIdx.x; b < 256; b += blockDim.x) {
-      if (shist[b] != 0) atomicAdd(&hist[static_cast<size_t>(t.f) * 256 + b], shist[b]);
+      if (shist[b] != 0) atomicAdd(&hist[static_cast<size_t>(f) * 256 + b], shist[b]);
     }
   }
 }
@@ -275,12 +487,31 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// Tile height, whether the band of frame rows is staged, and the shared-memory
+// bytes of K1/K15 (blur_hist_kernel's layout): the tallest of kBlurTileH .. 1 rows whose
+// staged band fits kBoxSmemBudget; past that (a radius of hundreds), the column
+// sums read the frame from global memory.
+void box_geometry(int h, int w, int r, int* tile_h, int* staged, size_t* smem) {
+  const int sw_max = std::min(kBlurTileW + 2 * r, w);
+  const size_t colsum_row = static_cast<size_t>(sw_max | 1) * sizeof(int);
+  const size_t pitch = static_cast<size_t>(sw_max + 30 + 15) / 16 * 16;
+  for (*staged = 1; *staged >= 0; --*staged) {
+    for (int th = kBlurTileH; th >= 1; th /= 2) {
+      *tile_h = std::min(th, h);
+      *smem = (256 * sizeof(int) + *tile_h * colsum_row + 15) / 16 * 16;
+      if (*staged) *smem += static_cast<size_t>(std::min(*tile_h + 2 * r, h)) * pitch;
+      if (*smem <= static_cast<size_t>(kBoxSmemBudget)) return;
+    }
+  }
+  *staged = 0;  // one row of column sums past the budget; the launch checks kMaxSmem
+}
+
 template <bool kWindow>
 int launch_blur_hist(const void* src, void* dst, void* hist, int n, int h, int w, int r, int row0,
                      int h_total, int row_lo, int row_hi, void* stream) {
-  int tile_h;
+  int tile_h, staged;
   size_t smem;
-  blur_geometry(h, w, r, 256 * sizeof(int), &tile_h, &smem);
+  box_geometry(h, w, r, &tile_h, &staged, &smem);
   const cudaError_t err = allow_smem(blur_hist_kernel<kWindow>, smem);
   if (err != cudaSuccess) return err;
   const int tiles_x = tiles(w, kBlurTileW);
@@ -290,7 +521,7 @@ int launch_blur_hist(const void* src, void* dst, void* hist, int n, int h, int w
   blur_hist_kernel<kWindow><<<static_cast<unsigned>(blocks), kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), static_cast<int*>(hist), h,
-      w, r, tile_h, tiles_x, tiles_y, row0, h_total, row_lo, row_hi);
+      w, r, tile_h, tiles_x, tiles_y, staged, row0, h_total, row_lo, row_hi);
   return cudaGetLastError();
 }
 

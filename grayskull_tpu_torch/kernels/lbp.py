@@ -34,7 +34,11 @@ launches = {"lbp_eval_scale": 0}
 # block order (bj*3+bi): TL TC TR L C R BL BC BR -> code bit per block
 # (grayskull.h:781-782): TL<<7, TC<<6, TR<<5, R<<4, BR<<3, BC<<2, BL<<1, L<<0
 _BLOCK_BITS = (7, 6, 5, 0, -1, 4, 1, 2, 3)  # -1 = center
-_MAX_TABLE_BYTES = 48 * 1024  # the kernel keeps the tables in shared memory (3,200 weaks)
+# the kernel keeps the tables, two window queues and the hit bytes of its
+# largest tile (64 x 32 windows, 10 KB) and 1,024 float leaves in one block's
+# shared memory (227 KB on Hopper): about 3,630 weaks
+_MAX_SMEM_BYTES = 227 * 1024
+_TILE_BYTES = 64 * 32 * 5 + 1024 * 4
 
 
 def _scaled_features(cascade, scale: float):
@@ -73,8 +77,9 @@ def scale_tables(cascade, scale: float) -> np.ndarray:
         stages.astype(np.int32).reshape(-1),
         cascade.stage_threshold.astype(np.float32).view(np.int32),
     ])
-    if out.nbytes > _MAX_TABLE_BYTES:
-        raise ValueError(f"lbp: cascade tables of {out.nbytes} B exceed {_MAX_TABLE_BYTES} B")
+    if -(-out.nbytes // 16) * 16 + _TILE_BYTES > _MAX_SMEM_BYTES:
+        raise ValueError(f"lbp: cascade tables of {out.nbytes} B and a tile's {_TILE_BYTES} B "
+                         f"exceed the {_MAX_SMEM_BYTES} B of shared memory")
     return out
 
 

@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from ..core import Rects, as_tensor
+from ..core import Rects, as_tensor, host_device
 from ..kernels import _build
 from ..kernels.lbp import _device_tables, lbp_eval_scale, lbp_eval_scale_plain
 
@@ -147,16 +147,14 @@ def lbp_warm_start(cascade, ih: int, iw: int, nb: int = 1, max_rects: int = 100,
                    scale_factor=1.2, min_scale=1.0, max_scale=4.0, step: int = 1) -> float:
     """Prepare ``lbp_detect`` for one frame geometry; returns seconds spent.
 
-    On the current CUDA device (the CPU when there is none) it builds and
-    loads the kernel library, uploads every ladder scale's cascade tables and
-    the plan's tables, and runs one detection on an all-zero batch of ``nb``
-    frames.
+    On :func:`~grayskull_tpu_torch.core.host_device` (the current CUDA device;
+    with none it raises unless the caller asked for the CPU with
+    ``host_arrays_to("cpu")``) it builds and loads the kernel library, uploads
+    every ladder scale's cascade tables and the plan's tables, and runs one
+    detection on an all-zero batch of ``nb`` frames.
     """
     t0 = time.perf_counter()
-    if torch.cuda.is_available():
-        device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        device = torch.device("cpu")
+    device = host_device()
     plan = _grid_plan(cascade, ih, iw, scale_factor, min_scale, max_scale, step)
     if plan:
         if device.type == "cuda":

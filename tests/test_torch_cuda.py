@@ -12,6 +12,8 @@ the Otsu sweep is bit-exact, so the tolerance is 0.
 file (the others import it): numpy inputs to the port run on the CPU there.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -189,6 +191,58 @@ def test_lbp_eval_scale_matches_plain_on_card(cuda_device, step):
         ny, nx = (40 - win) // step + 1, (256 - win) // step + 1
         assert torch.equal(K.lbp_eval_scale(syn, sii, scale, ny, nx, step),
                            K.lbp_eval_scale_plain(syn, sii, scale, ny, nx, step)), scale
+
+
+@pytest.mark.cuda
+def test_lbp_eval_scale_edge_cases_on_card(cuda_device):
+    """A frame smaller than one tile, 97x200 at steps 1-3, the full 640x480
+    ladder (its last scales stage more than 48 KB of integral), the four
+    corner windows through lbp_window, and cascades that every window passes
+    (full queues) or fails at stage 0 (empty queues)."""
+    cas = gt.load_frontalface()
+    lena = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/lena.pgm")
+    big = torch.from_numpy(np.stack([np.tile(lena, (4, 5))[:480, :640]] * 2)).to(cuda_device)
+    cases = [(_frames((2, 30, 40), 34, cuda_device), (1, 2)),
+             (_frames((2, 97, 200), 35, cuda_device), (1, 2, 3)), (big, (1, 2, 3))]
+    for frames, steps in cases:
+        ii = K.integral(frames)
+        h, w = frames.shape[1:]
+        for step in steps:
+            for scale, _, _, ny, nx in _grid_plan(cas, h, w, 1.2, 1.0, 4.0, step):
+                assert torch.equal(K.lbp_eval_scale(cas, ii, scale, ny, nx, step),
+                                   K.lbp_eval_scale_plain(cas, ii, scale, ny, nx, step)), (h, step)
+    plan = _grid_plan(cas, 480, 640, 1.2, 1.0, 4.0, 1)
+    for scale, win_w, win_h, _, _ in (plan[0], plan[-1]):
+        for y, x in ((0, 0), (0, 640 - win_w), (480 - win_h, 0), (480 - win_h, 640 - win_w)):
+            got = gt.lbp_window(cas, ii[0], x, y, scale)
+            assert got.is_cuda and bool(got) == bool(gt.lbp_window(cas, ii[0].cpu(), x, y, scale))
+    for threshold, expect in ((-np.inf, True), (np.inf, False)):
+        uniform = dataclasses.replace(cas, stage_threshold=np.full(cas.nstages, threshold,
+                                                                   np.float32))
+        for scale, _, _, ny, nx in plan:
+            got = K.lbp_eval_scale(uniform, ii, scale, ny, nx, 1)
+            assert torch.equal(got, K.lbp_eval_scale_plain(uniform, ii, scale, ny, nx, 1))
+            assert bool(got.all()) == expect and bool(got.any()) == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 7), (1, 40, 129), (2, 816, 612), (1, 70, 1000)])
+def test_blur_kernels_on_widths_past_16_byte_words_on_card(cuda_device, shape):
+    """K1 and K15 where rows are no whole 16-byte words, at radii 1 to 40; K15
+    at the first, a middle and the last row offset with random halo rows."""
+    n, h, w = shape
+    imgs = _frames(shape, 74, cuda_device)
+    h_total = h + 8
+    for r in (1, 2, 6, 16, 40):
+        for with_hist in (True, False):
+            got, ref = K.blur_hist(imgs, r, with_hist), K.blur_hist_plain(imgs, r, with_hist)
+            assert torch.equal(got[0], ref[0]) and (got[1] is None) == (ref[1] is None), r
+            assert got[1] is None or torch.equal(got[1], ref[1]), r
+        kw = {"h_total": h_total, "row_lo": min(r, h), "row_hi": max(min(r, h), h - r)}
+        for row0 in (-r, 4, h_total + r - h):
+            got = K.blur_hist_window(imgs, row0, r, **kw)
+            ref = K.blur_hist_window_plain(imgs, row0, r, **kw)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (r, row0)
 
 
 @pytest.mark.cuda

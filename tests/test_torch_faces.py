@@ -26,7 +26,7 @@ from grayskull_tpu.ops.lbp import lbp_detect as jax_lbp_detect
 from grayskull_tpu.ops.lbp import lbp_window as jax_lbp_window
 from grayskull_tpu.ops.lbp import scale_ladder as jax_scale_ladder
 from grayskull_tpu.pipelines.faces import detect_faces as jax_detect_faces
-from grayskull_tpu_torch.core import lbp_cascade_from_arrays
+from grayskull_tpu_torch.core import host_arrays_to, lbp_cascade_from_arrays
 from tests.test_torch_cuda import host_arrays_on_cpu  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -247,6 +247,20 @@ def test_lbp_detect_inputs(lena):
     with pytest.raises(ValueError):
         gt.lbp_detect(cascade, ii, 100, step=0)
     assert gt.pipelines.warm_start(128, 128) >= 0.0
+
+
+def test_warm_start_needs_a_card_or_the_cpu(monkeypatch):
+    """Outside ``host_arrays_to("cpu")`` the warm start prepares the CUDA
+    device; with none it raises rather than warm the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cascade = gt.load_frontalface()
+    with host_arrays_to(None):
+        with pytest.raises(RuntimeError, match="host_arrays_to"):
+            gt.lbp_warm_start(cascade, 32, 32)
+        with pytest.raises(RuntimeError, match="host_arrays_to"):
+            gt.pipelines.warm_start(32, 32)
+    assert gt.lbp_warm_start(cascade, 32, 32) >= 0.0  # the tests' fixture asks for the CPU
+    assert gt.pipelines.warm_start(32, 32, batch=2) >= 0.0
 
 
 def test_faces_import_leaves_jax_out():

@@ -191,7 +191,7 @@ def test_faces_wrappers_reject_bad_input():
     empty_stage = dataclasses.replace(cas, stage_nweaks=np.array([0, 4], np.uint16))
     with pytest.raises(ValueError):
         K.lbp_eval_scale(empty_stage, ii, 1.0, 1, 1)
-    nweaks = 3300  # past the 48 KB of tables the kernel keeps in shared memory
+    nweaks = 3800  # past the 227 KB of shared memory that holds the tables and a tile
     huge = dataclasses.replace(
         cas, weak_feature_idx=np.zeros(nweaks, np.uint16),
         weak_left_val=np.zeros(nweaks, np.float32), weak_right_val=np.zeros(nweaks, np.float32),
@@ -227,6 +227,34 @@ def test_wrappers_reject_bad_input():
             K.otsu(bad, 64)
     with pytest.raises(ValueError):
         K.otsu(hist, 2**31)
+
+
+def test_blur_magic_division_is_exact():
+    """K1/K15's division (``csrc/preproc.cu:div_magic``, ``div_exact``) replayed
+    in numpy: a multiply-high by ``floor((2^32 - 1) / d) + 1`` (``2^32 - 1`` for
+    d = 1), corrected once each way, is ``s // d`` for every uint32 ``s`` and
+    ``d >= 1``; on the interior path (d >= 2, ``s + d < 2^32``) one correction
+    down in 32-bit products is enough."""
+    rng = np.random.default_rng(7)
+    n = 1 << 18
+    d = np.concatenate([rng.integers(1, 70_000, n), 2 ** rng.integers(0, 32, n),
+                        rng.integers(1, 2**32, n), np.arange(1, 9).repeat(n // 8)]).astype(np.uint64)
+    k = rng.integers(0, 4, d.size).astype(np.uint64)
+    s = np.where(k == 0, rng.integers(0, 2**32, d.size).astype(np.uint64),  # any sum
+                 np.where(k == 1, np.minimum(d * rng.integers(0, 300, d.size).astype(np.uint64),
+                                             2**32 - 1),  # exact multiples, as in flat regions
+                          np.where(k == 2, np.minimum(256 * d, 2**32) - 1,  # the largest mean
+                                   2**32 - 1))).astype(np.uint64)
+    m = np.where(d == 1, 2**32 - 1, (2**32 - 1) // d + 1).astype(np.uint64)
+    est = (s * m) >> np.uint64(32)
+    qd = est * d
+    q = est - (qd > s).astype(np.uint64) + (qd + d <= s).astype(np.uint64)
+    np.testing.assert_array_equal(q, s // d)
+    inner = (d >= 2) & (s + d < 2**32)
+    assert inner.sum() > n
+    est, di, si = est[inner], d[inner], s[inner]
+    down = est - (((est * di) & np.uint64(0xFFFFFFFF)) > si).astype(np.uint64)
+    np.testing.assert_array_equal(down, si // di)
 
 
 def test_build_command_targets_hopper_without_fma(tmp_path):

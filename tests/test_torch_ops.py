@@ -45,6 +45,17 @@ def test_sobel_matches_jax(shape):
     _eq(gt.sobel(imgs[0]), gs.sobel(imgs[0]), f"{shape} single")
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 1, 7), (1, 7, 1)])
+def test_sobel_thin_frames_are_zeros_of_their_shape(shape):
+    """A 1-row or 1-column frame has no interior: C leaves its zeroed dst as
+    it is.  (JAX's ``sobel`` returns another shape here, so it is not compared.)"""
+    imgs = _frames(shape, 2)
+    got = gt.sobel(imgs)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == shape
+    assert not bool(got.any())
+    assert tuple(gt.sobel(imgs[0]).shape) == shape[1:]
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_threshold_matches_jax(shape):
     imgs = _frames(shape, 2)
