@@ -67,6 +67,7 @@ import dataclasses
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -90,6 +91,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 METRIC = "fused_blur_otsu_threshold_sobel_1MP_frames_per_sec"
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612), (4, 1024, 1024),
           (2, 64, 7), (1, 70, 1000)]  # widths 7, 129, 612 and 1000 are no multiples of 16
+# widths around one 16-byte word, and frames of one row, one pixel, one column
+EDGE_SHAPES = [(1, 9, 1), (1, 9, 15), (1, 9, 16), (1, 9, 17), (1, 9, 31), (1, 9, 33), (1, 1, 1),
+               (1, 1, 9), (2, 5, 1)]
+UNALIGNED = (3, 7, 9)  # its [1:] is contiguous and starts 63 bytes in: the byte paths
 RADII = (1, 2, 6, 7, 16, 40)
 MAIN_N, MAIN_H, MAIN_W, MAIN_R = 256, 1024, 1024, 2
 FACES_METRIC = "lbp_windows_per_sec"
@@ -162,8 +167,9 @@ WARP_QUADS = {  # on document.pgm (768 wide, 1024 high), tests/test_integral_tem
 }
 DENSE_KERNELS = ("adaptive", "morph")
 DENSE_N, DENSE_R, DENSE_C = 256, 15, 5
-ADAPTIVE_RADII = (1, 2, 6, 7, 15, 16, 40)
-ADAPTIVE_CS = (-3, 0, 5, 40)
+ADAPTIVE_RADII = (0, 1, 2, 6, 7, 15, 16, 40, 300)
+# both ends of int32 and where (int)(mean - c) starts and stops wrapping
+ADAPTIVE_CS = (-2**31, -2**31 + 255, -2**31 + 256, -3, 0, 5, 40, 2**31 - 1)
 FILTER_TAPS = {  # name: (taps, norm): the presets, negative sums, taps past int8
     "sharpen": (((0, -1, 0), (-1, 5, -1), (0, -1, 0)), 1),
     "emboss": (((-2, -1, 0), (-1, 1, 1), (0, 1, 2)), 1),
@@ -181,6 +187,7 @@ SHARDED_KERNELS = ("blur_hist_window", "otsu", "threshold_sobel_window")
 BANDWIDTH_KERNELS = ("copy", "triad")
 WINDOW_RADII = (1, 2, 6, 16, 40)
 BANDWIDTH_SIZES = (1, 15, 17, 2**20 + 3, 2**28)  # bytes: tails past whole 16-byte words
+BANDWIDTH_WINDOWS = 9  # alternating windows of K17 against copy_ and K18 against torch.add
 SPACE = 4  # shards a frame's rows split into on the main sharded mesh
 PREPROCESS_OUTPUTS = ("blurred", "binary", "edges", "thresholds")
 CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
@@ -281,10 +288,19 @@ def otsu_cases(rng):
     return cases
 
 
+def stencil_frames(rng, dev):
+    """(label, frames): SHAPES, EDGE_SHAPES and the unaligned ``[1:]`` of UNALIGNED."""
+    for shape in SHAPES + EDGE_SHAPES:
+        yield shape, torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    x = torch.from_numpy(rng.integers(0, 256, UNALIGNED, dtype=np.uint8)).to(dev)[1:]
+    if not x.is_contiguous() or x.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned batch is aligned or not contiguous")
+    yield f"{list(UNALIGNED)}[1:]", x
+
+
 def phase_kernels(chk, rng, dev):
-    for shape in SHAPES:
-        imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-        n, h, w = shape
+    for shape, imgs in stencil_frames(rng, dev):
+        n, h, w = imgs.shape
         for r in RADII:
             for with_hist in (True, False):
                 got = K.blur_hist(imgs, r, with_hist)
@@ -305,8 +321,9 @@ def phase_kernels(chk, rng, dev):
         h = torch.from_numpy(hists).to(dev)
         chk.same("otsu", K.otsu(h, total), K.otsu_plain(h, total), name)
     torch.cuda.synchronize()
-    emit("kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES], radii=list(RADII),
-         checks=chk.checks, max_abs_err=chk.max_err)
+    emit("kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES + EDGE_SHAPES],
+         unaligned=f"{list(UNALIGNED)}[1:]", radii=list(RADII), checks=chk.checks,
+         max_abs_err=chk.max_err)
 
 
 def phase_main_path(chk, dev):
@@ -1145,8 +1162,7 @@ def adaptive_morph_plain(frames):
 
 
 def phase_dense_kernels(chk, rng, dev):
-    for shape in SHAPES:
-        imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    for shape, imgs in stencil_frames(rng, dev):
         for r in ADAPTIVE_RADII:
             for c in ADAPTIVE_CS:
                 chk.same("adaptive", K.adaptive(imgs, r, c), K.adaptive_plain(imgs, r, c),
@@ -1162,8 +1178,8 @@ def phase_dense_kernels(chk, rng, dev):
         chk.same("resize", K.resize(imgs, dst), K.resize_plain(imgs, dst), f"{src}->{dst}")
     torch.cuda.synchronize()
     dense = ("adaptive", "morph", "filter3", "resize")
-    emit("dense_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES],
-         radii=list(ADAPTIVE_RADII), offsets=list(ADAPTIVE_CS), taps=sorted(FILTER_TAPS),
+    emit("dense_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES + EDGE_SHAPES],
+         unaligned=f"{list(UNALIGNED)}[1:]", radii=list(ADAPTIVE_RADII), offsets=list(ADAPTIVE_CS), taps=sorted(FILTER_TAPS),
          resize_cases=[[list(a), list(b)] for a, b in RESIZE_CASES],
          checks={k: chk.checks[k] for k in dense}, max_abs_err={k: chk.max_err[k] for k in dense})
 
@@ -1356,9 +1372,8 @@ def phase_sharded_kernels(chk, rng, dev):
     """K15 and K16 at the first, a middle and the last row offset of a frame 8
     rows taller than the array; K17 and K18 on sizes whose tails are not whole
     16-byte words, aligned and one byte off."""
-    for shape in SHAPES:
-        n, h, w = shape
-        imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    for shape, imgs in stencil_frames(rng, dev):
+        n, h, w = imgs.shape
         t = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
         h_total = h + 8
         for r in WINDOW_RADII:
@@ -1389,8 +1404,8 @@ def phase_sharded_kernels(chk, rng, dev):
         del x, y
         torch.cuda.synchronize()
     names = ("blur_hist_window", "threshold_sobel_window", "copy", "triad")
-    emit("sharded_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES],
-         radii=list(WINDOW_RADII), sizes=list(BANDWIDTH_SIZES),
+    emit("sharded_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES + EDGE_SHAPES],
+         unaligned=f"{list(UNALIGNED)}[1:]", radii=list(WINDOW_RADII), sizes=list(BANDWIDTH_SIZES),
          checks={k: chk.checks[k] for k in names}, max_abs_err={k: chk.max_err[k] for k in names})
 
 
@@ -1475,11 +1490,44 @@ def phase_bandwidth(card, dev):
     }
     for name, entry in times.items():
         emit("kernel_time", card=card, kernel=name, shape=list(x.shape), **entry)
+    alternating = {
+        "copy_vs_copy_": alternate_windows(lambda: K.copy(x), lambda: out.copy_(x)),
+        "triad_vs_add": alternate_windows(lambda: K.triad(x, y), lambda: torch.add(x, y, out=out)),
+    }
     emit("bandwidth", card=card, **rates, launches={k: launches[k] for k in BANDWIDTH_KERNELS},
          operand_bytes=nb, copy_ms=times["copy"]["ms"], copy__ms=times["copy"]["library_ms"],
          triad_ms=times["triad"]["ms"], add_ms=times["triad"]["library_ms"],
-         source="profiling.hbm_bandwidth_gbps: median of 3 windows of 20 calls")
+         alternating=alternating,
+         source="profiling.hbm_bandwidth_gbps: median of 3 windows of 20 calls; alternating: "
+                f"{BANDWIDTH_WINDOWS} windows of 20 calls each, kernel and library call in turns")
     return launches, times, rates
+
+
+def alternate_windows(kernel, library, windows=BANDWIDTH_WINDOWS, iters=20):
+    """ms per call of ``kernel`` and ``library`` over ``windows`` windows of
+    ``iters`` calls each, the two in turns (the library first in every other
+    pair): each one's median and min-max spread, and the median gap."""
+    ms = {"kernel": [], "library": []}
+    for fn in (kernel, library, kernel, library):  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    for i in range(windows):
+        for name in (("kernel", "library") if i % 2 == 0 else ("library", "kernel")):
+            fn = kernel if name == "kernel" else library
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            ms[name].append(start.elapsed_time(end) / iters)
+    out = {}
+    for name, values in ms.items():
+        out[name] = {"median_ms": statistics.median(values), "min_ms": min(values),
+                     "max_ms": max(values), "spread_ms": max(values) - min(values),
+                     "windows_ms": values}
+    out["median_gap_ms"] = out["kernel"]["median_ms"] - out["library"]["median_ms"]
+    return out
 
 
 def phase_sharded_timing(batch, card):

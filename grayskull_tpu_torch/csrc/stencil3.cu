@@ -18,8 +18,8 @@
 //
 // What bounds them: device memory.  Each reads 1 B and writes 1 B a pixel;
 // nine compares or nine multiply-adds a pixel are far below the card's rate.
-// As K2 (csrc/preproc.cu), each block stages its 128x32 output tile plus a
-// 1-pixel halo in shared memory once, filled with the op's border value, so
+// Each block stages its 128x32 output tile plus a 1-pixel halo in shared
+// memory once, filled with the op's border value, so
 // every thread's nine reads hit shared memory and device memory sees the
 // frame about once (halo rows come again from L2).
 //

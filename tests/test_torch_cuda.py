@@ -225,11 +225,46 @@ def test_lbp_eval_scale_edge_cases_on_card(cuda_device):
             assert bool(got.all()) == expect and bool(got.any()) == expect
 
 
+# K11's offsets: both ends of int32 and where (int)(mean - c) starts and stops wrapping
+ADAPTIVE_CS = (-2**31, -2**31 + 255, -2**31 + 256, -3, 0, 5, 2**31 - 1)
+EDGE_SHAPES = [(1, 9, 1), (1, 9, 15), (1, 9, 16), (1, 9, 17), (1, 9, 31), (1, 9, 33), (1, 1, 1),
+               (1, 1, 9), (2, 5, 1)]
+
+
+def _sobel_cases(imgs, t):
+    """K2 without thresholds, with them, and with them but no binary map."""
+    for thr, wb in ((None, True), (t, True), (t, False)):
+        got, ref = K.threshold_sobel(imgs, thr, wb), K.threshold_sobel_plain(imgs, thr, wb)
+        assert torch.equal(got[1], ref[1]) and (got[0] is None) == (ref[0] is None), thr is None
+        assert got[0] is None or torch.equal(got[0], ref[0])
+
+
+def _adaptive_cases(imgs, radii=(0, 15, 16, 300)):
+    for r in radii:
+        for c in ADAPTIVE_CS:
+            got = K.adaptive(imgs, r, c)
+            assert got.is_cuda and torch.equal(got, K.adaptive_plain(imgs, r, c)), (r, c)
+
+
+def _window_sobel_cases(imgs, t, h_total):
+    """K16 at the first, a middle and the last row offset, with and without binary."""
+    h = imgs.shape[1]
+    for row0 in (-1, 4, h_total + 1 - h):
+        for want_binary in (True, False):
+            got = K.threshold_sobel_window(imgs, t, row0, h_total=h_total, want_binary=want_binary)
+            ref = K.threshold_sobel_window_plain(imgs, t, row0, h_total=h_total,
+                                                 want_binary=want_binary)
+            assert torch.equal(got[1], ref[1]) and (got[0] is None) == (ref[0] is None), row0
+            assert got[0] is None or torch.equal(got[0], ref[0]), row0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 64, 7), (1, 40, 129), (2, 816, 612), (1, 70, 1000)])
+@pytest.mark.parametrize("shape", [(2, 64, 7), (1, 40, 129), (2, 816, 612), (1, 70, 1000)]
+                         + EDGE_SHAPES)
 def test_blur_kernels_on_widths_past_16_byte_words_on_card(cuda_device, shape):
     """K1 and K15 where rows are no whole 16-byte words, at radii 1 to 40; K15
-    at the first, a middle and the last row offset with random halo rows."""
+    at the first, a middle and the last row offset with random halo rows; K11,
+    K2 and K16 on the same frames."""
     n, h, w = shape
     imgs = _frames(shape, 74, cuda_device)
     h_total = h + 8
@@ -243,6 +278,28 @@ def test_blur_kernels_on_widths_past_16_byte_words_on_card(cuda_device, shape):
             got = K.blur_hist_window(imgs, row0, r, **kw)
             ref = K.blur_hist_window_plain(imgs, row0, r, **kw)
             assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (r, row0)
+    t = torch.from_numpy(np.arange(n, dtype=np.uint8) * 70 + 60).to(cuda_device)
+    _adaptive_cases(imgs)
+    _sobel_cases(imgs, t)
+    _window_sobel_cases(imgs, t, h_total)
+
+
+@pytest.mark.cuda
+def test_stencil_kernels_on_an_unaligned_batch_on_card(cuda_device):
+    """``x[1:]`` of a contiguous (3, 7, 9) batch starts 63 bytes in: K1, K11,
+    K2, K15 and K16 take their byte paths on it."""
+    x = _frames((3, 7, 9), 75, cuda_device)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    t = torch.tensor([200, 31], dtype=torch.uint8, device=cuda_device)
+    for r in (1, 2, 6):
+        got, ref = K.blur_hist(x, r), K.blur_hist_plain(x, r)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), r
+        kw = {"h_total": 15, "row_lo": 1, "row_hi": 6}
+        got, ref = K.blur_hist_window(x, 4, r, **kw), K.blur_hist_window_plain(x, 4, r, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), r
+    _adaptive_cases(x)
+    _sobel_cases(x, t)
+    _window_sobel_cases(x, t, 15)
 
 
 @pytest.mark.cuda
@@ -518,10 +575,11 @@ def test_cli_on_card_matches_cpu(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES + [(2, 258, 1024)])
 def test_window_kernels_match_plain_on_card(cuda_device, shape):
     """K15 and K16 at the first, a middle and the last row offset of a frame 8
-    rows taller than the array (random halo rows: K15's means pass 255 there)."""
+    rows taller than the array (random halo rows: K15's means pass 255 there);
+    K11 and K2 on the same frames."""
     n, h, w = shape
     imgs = _frames(shape, 70, cuda_device)
     t = torch.from_numpy(np.arange(n, dtype=np.uint8) * 70 + 60).to(cuda_device)
@@ -532,13 +590,9 @@ def test_window_kernels_match_plain_on_card(cuda_device, shape):
             got = K.blur_hist_window(imgs, row0, r, **kw)
             ref = K.blur_hist_window_plain(imgs, row0, r, **kw)
             assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (r, row0)
-    for row0 in (-1, 4, h_total + 1 - h):
-        for want_binary in (True, False):
-            got = K.threshold_sobel_window(imgs, t, row0, h_total=h_total, want_binary=want_binary)
-            ref = K.threshold_sobel_window_plain(imgs, t, row0, h_total=h_total,
-                                                 want_binary=want_binary)
-            assert torch.equal(got[1], ref[1]) and (got[0] is None) == (ref[0] is None)
-            assert got[0] is None or torch.equal(got[0], ref[0])
+    _window_sobel_cases(imgs, t, h_total)
+    _adaptive_cases(imgs)
+    _sobel_cases(imgs, t)
 
 
 @pytest.mark.cuda

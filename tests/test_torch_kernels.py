@@ -22,7 +22,8 @@ from grayskull_tpu.kernels.integral import integral_pallas
 from grayskull_tpu.kernels.lbp import lbp_eval_scale as jax_lbp_eval_scale
 from grayskull_tpu.kernels.lbp import lbp_pad_for
 from grayskull_tpu.kernels.preproc import (blur_pallas, fused_blur_hist,
-                                           fused_threshold_sobel, sobel_pallas)
+                                           fused_threshold_sobel, preproc_available,
+                                           sobel_pallas)
 from grayskull_tpu.ops.histogram import otsu_from_histogram as jax_otsu_from_histogram
 from grayskull_tpu.ops.lbp import _eval_windows_jit
 from grayskull_tpu_torch import kernels as K
@@ -255,6 +256,66 @@ def test_blur_magic_division_is_exact():
     est, di, si = est[inner], d[inner], s[inner]
     down = est - (((est * di) & np.uint64(0xFFFFFFFF)) > si).astype(np.uint64)
     np.testing.assert_array_equal(down, si // di)
+
+
+def _neighbourhood_frame(t, rng):
+    """A 64 x 128 frame holding all 512 3x3 patterns of above/not above ``t``:
+    pattern p fills the 3x3 cell at rows 4i.., columns 4j.. (p = 32i + j,
+    bit 3*dy + dx for the pixel at (dy, dx)), centred at (4i+1, 4j+1); the
+    fourth row and column of each cell are random."""
+    frame = rng.integers(0, 256, (64, 128), dtype=np.int64)
+    bits = (np.arange(512)[:, None] >> np.arange(9)[None, :]) & 1  # (512, 9)
+    above = rng.integers(t + 1, 256, (512, 9)) if t < 255 else np.zeros((512, 9), np.int64)
+    below = rng.integers(0, t + 1, (512, 9))
+    cells = np.where(bits == 1, above, below).reshape(512, 3, 3)
+    for p in range(512):
+        i, j = divmod(p, 32)
+        frame[4 * i:4 * i + 3, 4 * j:4 * j + 3] = cells[p]
+    return frame.astype(np.uint8), bits.reshape(512, 3, 3)
+
+
+@pytest.mark.parametrize("t", [0, 90, 254])
+def test_binary_sobel_is_0_127_255_on_every_neighbourhood(t):
+    """K2/K16's Sobel on the 0/1 map (``csrc/preproc.cu:sobel_words``) replayed
+    in numpy.  On a {0, 255} map the magnitude min(255 * (|gx|+|gy|) / 2, 255)
+    of the 0/1 map's gx, gy is 0, 127 or 255 as |gx|+|gy| is 0, 1, or 2 and
+    more; the port's plain version and JAX ``fused_threshold_sobel`` (interpret
+    mode) give that rule on all 512 neighbourhoods.  |gx|+|gy| has the parity
+    of gx+gy = 2(i-a) + 2(f+h-b-d), so it is never 1 and the rule is 0 where
+    gx = gy = 0, else 255: the kernel's test.  Its column and row [1, 2, 1]
+    sums are at most 4, their XORs at most 7, and ``((d + 0x7f7f7f7f) >> 7 &
+    0x01010101) * 0xff`` maps four such bytes at once, with no carry between
+    them, to 255 where a byte is not 0."""
+    rng = np.random.default_rng(20 + t)
+    frame, bits = _neighbourhood_frame(t, rng)
+    assert preproc_available(*frame.shape)
+    imgs = np.stack([frame, frame[::-1].copy()])
+    thr = np.array([t, t], np.uint8)
+    binary, edges = K.threshold_sobel(torch.from_numpy(imgs), torch.from_numpy(thr))
+    ref_binary, ref_edges = fused_threshold_sobel(imgs, thr, True, interpret=True)
+    _eq(binary, ref_binary, "binary")
+    _eq(edges, ref_edges, "edges")
+    b = bits.astype(np.int64)  # (512, 3, 3): rows dy, columns dx
+    taps = np.array([1, 2, 1])
+    v_left, v_right = (b[:, :, 0] * taps).sum(1), (b[:, :, 2] * taps).sum(1)
+    h_top, h_bottom = (b[:, 0, :] * taps).sum(1), (b[:, 2, :] * taps).sum(1)
+    gx, gy = v_right - v_left, h_bottom - h_top
+    s = np.abs(gx) + np.abs(gy)
+    rule = np.where(s == 0, 0, np.where(s == 1, 127, 255))
+    centres = edges[0].numpy()[4 * (np.arange(512) // 32) + 1, 4 * (np.arange(512) % 32) + 1]
+    np.testing.assert_array_equal(centres, rule)
+    np.testing.assert_array_equal(np.minimum(255 * s // 2, 255), rule)
+    assert (s % 2 == 0).all() and s.max() == 6 and set(rule.tolist()) == {0, 255}
+    sums = np.stack([v_left, v_right, h_top, h_bottom])
+    assert sums.min() == 0 and sums.max() == 4
+    d = (v_right ^ v_left) | (h_bottom ^ h_top)
+    np.testing.assert_array_equal(np.where(d != 0, 255, 0), rule)
+    # the word formula on every choice of four bytes d = 0 .. 7
+    quads = np.stack(np.meshgrid(*[np.arange(8)] * 4, indexing="ij"), -1).reshape(-1, 4)
+    words = (quads.astype(np.uint64) << (8 * np.arange(4, dtype=np.uint64))).sum(1)
+    out = ((((words + 0x7F7F7F7F) >> 7) & 0x01010101) * 0xFF) & 0xFFFFFFFF
+    got = (out[:, None] >> (8 * np.arange(4, dtype=np.uint64))) & 0xFF
+    np.testing.assert_array_equal(got, np.where(quads == 0, 0, 255))
 
 
 def test_build_command_targets_hopper_without_fma(tmp_path):

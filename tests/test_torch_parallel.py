@@ -272,7 +272,7 @@ def test_copy_and_triad_plain_vs_numpy(shape):
 
 def test_package_and_chip_smoke_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|grayskull_tpu)(\s|\.|$)", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_sweep.py")]
     for root, _, names in os.walk(os.path.join(REPO, "grayskull_tpu_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     bad = [f for f in files if pattern.search(open(f, encoding="utf-8").read())]
