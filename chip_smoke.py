@@ -178,6 +178,9 @@ FILTER_TAPS = {  # name: (taps, norm): the presets, negative sums, taps past int
     "sobel_y norm 1": (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 1),
     "sobel_y norm 7": (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 7),
     "wide": (((300, -1000, 5), (0, 70000, 0), (1, 2, -99999)), 3),
+    # the int8 edge (K13's dp4a path) and just past it (its multiply-add path)
+    "int8 edge": (((127, -128, 127), (-128, 127, -128), (127, -128, 127)), 2),
+    "past int8": (((128, -129, 0), (1, 2, 3), (-129, 0, 128)), 5),
 }
 RESIZE_CASES = [((1024, 1024), (480, 640)), ((480, 640), (768, 1024)), ((480, 640), (347, 200)),
                 ((200, 256), (200, 256)), ((816, 612), (100, 40)), ((1, 1), (5, 7)),
@@ -186,7 +189,12 @@ RESIZE_N, RESIZE_TO = 256, (480, 640)
 SHARDED_KERNELS = ("blur_hist_window", "otsu", "threshold_sobel_window")
 BANDWIDTH_KERNELS = ("copy", "triad")
 WINDOW_RADII = (1, 2, 6, 16, 40)
-BANDWIDTH_SIZES = (1, 15, 17, 2**20 + 3, 2**28)  # bytes: tails past whole 16-byte words
+# bytes: tails past whole 16-byte words (one K18 thread's vector), one
+# 256-thread block's 4096, and the 64, 2048 and 16384 of chip_sweep.py's
+# chunked K18 variants, each side
+BANDWIDTH_SIZES = (1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 16383, 16384,
+                   16385, 2**20 + 3, 2**28)
+BANDWIDTH_OFFSETS = (0, 1, 4, 8)  # bytes the operands start past a 16-byte boundary
 BANDWIDTH_WINDOWS = 9  # alternating windows of K17 against copy_ and K18 against torch.add
 SPACE = 4  # shards a frame's rows split into on the main sharded mesh
 PREPROCESS_OUTPUTS = ("blurred", "binary", "edges", "thresholds")
@@ -1195,10 +1203,39 @@ def dense_goldens(img):
     }
 
 
+def stencil3_access(src, dst, w):
+    """The bytes of one row access of K12 or K13 launched on the addresses
+    ``src`` and ``dst`` with rows of ``w`` bytes: 16 where all three are
+    multiples of 16, 4 where they are multiples of 4, else 1, as
+    ``csrc/stencil3.cu:access_width`` picks them."""
+    a = src | dst | w
+    return 16 if a % 16 == 0 else 4 if a % 4 == 0 else 1
+
+
+class _MorphAccess:
+    """Stands in for the kernel library and records the access width of every
+    ``gs_morph`` launch from the arguments the wrapper passed it."""
+
+    def __init__(self, lib):
+        self._lib, self.widths = lib, []
+
+    def gs_morph(self, src, dst, n, h, w, *rest):
+        self.widths.append(stencil3_access(src, dst, w))
+        return self._lib.gs_morph(src, dst, n, h, w, *rest)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
 def phase_dense_path(chk, dev):
     host = receipt_batch(DENSE_N)
     batch = torch.from_numpy(host).to(dev)
-    out, l_path = _launched(DENSE_KERNELS, adaptive_morph, batch)
+    lib = _build.library()
+    _build._lib = morph_access = _MorphAccess(lib)
+    try:
+        out, l_path = _launched(DENSE_KERNELS, adaptive_morph, batch)
+    finally:
+        _build._lib = lib
     if l_path["adaptive"] != 1 or l_path["morph"] != 2:
         raise AssertionError(f"config #2 launched {l_path}, not adaptive 1 and morph 2")
     if tuple(out.shape) != tuple(batch.shape) or out.dtype != torch.uint8:
@@ -1222,6 +1259,7 @@ def phase_dense_path(chk, dev):
     launches = {name: l_path[name] + l_goldens[name] for name in KERNELS}
     emit("dense_path", ok=True, frames=DENSE_N, height=batch.shape[1], width=batch.shape[2],
          radius=DENSE_R, c=DENSE_C, launches=launches, launches_config2=l_path,
+         morph_access_bytes=morph_access.widths,
          launches_goldens=l_goldens, white_fraction=white / out.numel(), cpu_frames_checked=rows,
          goldens=sorted(got))
     return batch, out, launches
@@ -1371,7 +1409,7 @@ def card_mesh(shape, dev):
 def phase_sharded_kernels(chk, rng, dev):
     """K15 and K16 at the first, a middle and the last row offset of a frame 8
     rows taller than the array; K17 and K18 on sizes whose tails are not whole
-    16-byte words, aligned and one byte off."""
+    16-byte words or around K18's vectors and blocks, aligned and 1, 4 and 8 bytes off."""
     for shape, imgs in stencil_frames(rng, dev):
         n, h, w = imgs.shape
         t = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
@@ -1396,16 +1434,18 @@ def phase_sharded_kernels(chk, rng, dev):
         torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(6)
     for size in BANDWIDTH_SIZES:
-        x, y = (torch.randint(0, 256, (size + 1,), dtype=torch.uint8, device=dev, generator=gen)
+        x, y = (torch.randint(0, 256, (size + 8,), dtype=torch.uint8, device=dev, generator=gen)
                 for _ in range(2))
-        for a, b, what in ((x[:size], y[:size], "aligned"), (x[1:], y[1:], "one byte off")):
-            chk.same("copy", K.copy(a), K.copy_plain(a), f"{size} B {what}")
-            chk.same("triad", K.triad(a, b), K.triad_plain(a, b), f"{size} B {what}")
+        for off in BANDWIDTH_OFFSETS:
+            a, b = x[off:off + size], y[off:off + size]
+            chk.same("copy", K.copy(a), K.copy_plain(a), f"{size} B {off} B off")
+            chk.same("triad", K.triad(a, b), K.triad_plain(a, b), f"{size} B {off} B off")
         del x, y
         torch.cuda.synchronize()
     names = ("blur_hist_window", "threshold_sobel_window", "copy", "triad")
     emit("sharded_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES + EDGE_SHAPES],
          unaligned=f"{list(UNALIGNED)}[1:]", radii=list(WINDOW_RADII), sizes=list(BANDWIDTH_SIZES),
+         offsets=list(BANDWIDTH_OFFSETS),
          checks={k: chk.checks[k] for k in names}, max_abs_err={k: chk.max_err[k] for k in names})
 
 

@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Time variants of ``csrc/preproc.cu``'s kernels against each other on one card.
+"""Time variants of one ``csrc/*.cu`` file's kernels against each other on one card.
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
-    python3 chip_sweep.py [--parent DIR ...]
+    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth}] [--parent DIR ...]
+                          [--only NAME ...]
 
-It builds ``grayskull_tpu_torch/csrc/preproc.cu`` as it is and in variants
-that change one tile constant -- K2/K16's strip of rows a warp sweeps
-(``kSobelStrip``: 32, 64, 128) and the outputs a K11 thread makes in its
-row pass (``kAdaptiveItem``: 16, 32, 64) -- two ablations of
+It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
+that are text edits of it, each into a library of its own under
+``grayskull_tpu_torch/_build/sweep/<source>/`` (``nvcc -Xptxas -v`` prints
+each kernel's registers), and, with ``--parent``, the same file under each DIR
+(for example the parent commit unpacked with ``git archive``; the variant is
+named after the directory); ``--only`` keeps the variants named.  Each
+library's kernels are held bit for bit to their plain versions at the shapes
+of PERF.md's kernel table (a text-edit variant that does not build, or
+differs, is reported and dropped; the committed file or a ``--parent`` one
+that does stops the sweep), then every variant is
+timed in turns, first in order and then in reverse, with ``profiling.timeit``
+(median of 3 windows of 20 calls), on the same inputs.
+
+``--source preproc`` (the default): K2/K16's strip of rows a warp sweeps
+(``kSobelStrip``: 32, 64, 128), the outputs a K11 thread makes in its row
+pass (``kAdaptiveItem``: 16, 32, 64), and two ablations of
 ``blur_hist_kernel`` that skip its vertical pass or its row pass (their
 outputs are wrong and not checked: they split K1's and K11's time between
-the stages) -- and, with ``--parent``, the
-``grayskull_tpu_torch/csrc/preproc.cu`` under each DIR (for example the
-parent commit unpacked with ``git archive``; the variant is named after the
-directory), each into a library of its own under
-``grayskull_tpu_torch/_build/sweep/`` (``nvcc -Xptxas -v`` prints each
-kernel's registers).  Each library's K1, K2, K11 and K16 are held bit for bit
-to their plain versions at the shapes of PERF.md's kernel table, then every
-variant is timed in turns, first in order and then in reverse, with
-``profiling.timeit`` (median of 3 windows of 20 calls), on the same inputs:
+the stages), on
 
 * K1 ``blur_hist``: 256 frames of lena tiled to 1024x1024, r = 2;
 * K2 ``threshold_sobel``: the blurred frames with their Otsu thresholds and
@@ -27,6 +32,28 @@ variant is timed in turns, first in order and then in reverse, with
 * K16 ``threshold_sobel_window``: the middle shard of a (1, 4) split,
   256 x 258 x 1024;
 * K11 ``adaptive``: 256 frames of receipt.pgm (816x612), r = 15, c = 5.
+
+``--source stencil3``: the strip height (``kStrip``: 8, 16, 32, 64, 128), the
+4-byte path's lane layout (lane l on words l + 32k of its segment, in place
+of the lane's own 16 columns), the byte path in its place, and K13's packed
+taps as a rank-1 pass (column sums, then row sums; rank-1 int8 taps only,
+others take the multiply-add path), on
+
+* K13 ``filter3``: the 256 lena frames of 1024x1024, Gaussian taps, norm 16;
+* K12 ``morph``: config #2's binary frames (``adaptive`` of 256 receipt
+  frames, 816x612), dilate and erode.
+
+``--source bandwidth``: K18's kernel swapped for one that moves several
+vectors a thread (1, 2, 4, 8) with every load issued before the first store,
+in blocks of 256 or 128 threads, vectors of 16, 8 or 4 bytes, streaming hints
+(``__ldcs``/``__stcs``) on the loads, the stores, both or neither; the
+committed kernel without ``__restrict__``; and a ring of shared-memory
+stages filled by bulk copies (``cp.async.bulk`` with ``mbarrier``
+completion, two persistent blocks an SM, the sum stored by bulk copies), on
+K17 ``copy`` and K18 ``triad`` over 256 MiB; ``Tensor.copy_``,
+``torch.add(x, y, out=o)``, ``torch.add(x, y)`` and the committed entries
+called into ``o`` without their wrappers are timed in the same turns, and the
+profiler names the library calls' kernels.
 
 Each phase prints one JSON line; the last line is ``{"ok": true, ...}``.
 """
@@ -42,30 +69,501 @@ import time
 
 import torch
 
-from chip_smoke import MAIN_H, MAIN_N, MAIN_R, MAIN_W, card_line, lena_batch, receipt_batch
+from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FILTER_TAPS, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
+                        card_line, lena_batch, receipt_batch)
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.profiling import timeit
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ENTRIES = ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
-           "gs_threshold_sobel_window", "gs_adaptive")
-# name: {constant definition in preproc.cu: its replacement}
-VARIANTS = {
-    "committed": {},
-    "strip32": {"constexpr int kSobelStrip = 64;": "constexpr int kSobelStrip = 32;"},
-    "strip128": {"constexpr int kSobelStrip = 64;": "constexpr int kSobelStrip = 128;"},
-    "item16": {"constexpr int kAdaptiveItem = 32;": "constexpr int kAdaptiveItem = 16;"},
-    "item64": {"constexpr int kAdaptiveItem = 32;": "constexpr int kAdaptiveItem = 64;"},
+
+def edit(text, *pairs):
+    """``text`` with each ``old`` replaced by ``new``; each ``old`` must occur once."""
+    for old, new in zip(pairs[::2], pairs[1::2]):
+        if text.count(old) != 1:
+            raise AssertionError(f"{old[:80]!r} is not in the source once")
+        text = text.replace(old, new)
+    return text
+
+
+def replace_span(text, start, end, new):
+    """``text`` with the part from ``start`` up to (not including) ``end`` replaced by ``new``."""
+    i = text.index(start)
+    return text[:i] + new + text[text.index(end, i):]
+
+
+def const(name, value):
+    """The edit that sets the constant ``name`` (``constexpr <type> name = ...;``) to ``value``."""
+    def make(text):
+        out, n = re.subn(rf"(constexpr \w+ {name} = )[^;]+;", rf"\g<1>{value};", text)
+        if n != 1:
+            raise AssertionError(f"{name} is not defined once")
+        return out
+    return make
+
+
+def chain(*edits):
+    def make(text):
+        for e in edits:
+            text = e(text)
+        return text
+    return make
+
+
+PREPROC_VARIANTS = {
+    "committed": lambda s: s,
+    "strip32": const("kSobelStrip", 32),
+    "strip128": const("kSobelStrip", 128),
+    "item16": const("kAdaptiveItem", 16),
+    "item64": const("kAdaptiveItem", 64),
 }
-# ablations: timed, never checked
-ABLATIONS = {
-    "no_vertical_pass": {
-        "    box_columns(StagedBytes{band, pitch, ry0, a0}, colsum, swp, sw, cx0, y0, rows, h, r, ry0,\n"
-        "                ry1 - 1);\n": ""},
-    "no_row_pass": {
-        "for (int item = threadIdx.x; item < total; item += blockDim.x) {":
-            "for (int item = threadIdx.x + total; item < total; item += blockDim.x) {"},
+PREPROC_ABLATIONS = {
+    "no_vertical_pass": lambda s: edit(
+        s, "    box_columns(StagedBytes{band, pitch, ry0, a0}, colsum, swp, sw, cx0, y0, rows, h, r, ry0,\n"
+           "                ry1 - 1);\n", ""),
+    "no_row_pass": lambda s: edit(
+        s, "for (int item = threadIdx.x; item < total; item += blockDim.x) {",
+        "for (int item = threadIdx.x + total; item < total; item += blockDim.x) {"),
+}
+
+# K13's packed taps as a rank-1 pass: taps[j][i] = u[j] * v[i] (the JAX kernel's
+# _rank1_taps), column sums of u over the three rows, then row sums of v.
+RANK1_FILTER_WORDS = r'''// K13's outputs at the lane's 16 columns: a rank-1 pass for factored taps.
+template <bool kPacked>
+__device__ __forceinline__ void filter_words(const Windows& a, const Windows& m, const Windows& b,
+                                             const Taps& t, unsigned out[4]) {
+  const Windows* rows[3] = {&a, &m, &b};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    out[k] = 0u;
+    if (kPacked) {
+      int c[6] = {0, 0, 0, 0, 0, 0};  // column sums at columns x - 1 .. x + 4 of the word
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const unsigned lo = rows[dy]->at(k, 0), hi = rows[dy]->at(k, 3);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[i] += t.u[dy] * static_cast<int>((lo >> (8 * i)) & 0xffu);
+        c[4] += t.u[dy] * static_cast<int>((hi >> 8) & 0xffu);
+        c[5] += t.u[dy] * static_cast<int>((hi >> 16) & 0xffu);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned sum = static_cast<unsigned>(t.v[0] * c[j] + t.v[1] * c[j + 1] + t.v[2] * c[j + 2]);
+        const int q = static_cast<int>(div_exact(sum, t.norm, t.magic));
+        out[k] |= static_cast<unsigned>(min(max(q, 0), 255)) << (8 * j);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned sum = 0u;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const unsigned win = rows[dy]->at(k, j);
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            sum += ((win >> (8 * dx)) & 0xffu) * static_cast<unsigned>(t.k[3 * dy + dx]);
+          }
+        }
+        const int q = static_cast<int>(div_exact(sum, t.norm, t.magic));
+        out[k] |= static_cast<unsigned>(min(max(q, 0), 255)) << (8 * j);
+      }
+    }
+  }
+}
+
+'''
+RANK1_FACTORS = r'''
+// taps[j][i] = u[j] * v[i] with integer u, v, or false.
+bool rank1(const int k[9], int u[3], int v[3]) {
+  int p = 0;
+  while (p < 3 && k[3 * p] == 0 && k[3 * p + 1] == 0 && k[3 * p + 2] == 0) ++p;
+  if (p == 3) return false;
+  int g = 0;
+  for (int i = 0; i < 3; ++i) {
+    int x = k[3 * p + i] < 0 ? -k[3 * p + i] : k[3 * p + i];
+    while (x != 0) { const int r = g % x; g = x; x = r; }
+  }
+  int i0 = 0;
+  for (int i = 0; i < 3; ++i) v[i] = k[3 * p + i] / g;
+  while (v[i0] == 0) ++i0;
+  for (int j = 0; j < 3; ++j) {
+    if (k[3 * j + i0] % v[i0] != 0) return false;
+    u[j] = k[3 * j + i0] / v[i0];
+    for (int i = 0; i < 3; ++i) if (k[3 * j + i] != u[j] * v[i]) return false;
+  }
+  return true;
+}
+
+int ceil_div('''
+
+
+def _stencil3_rank1(s):
+    s = edit(s, "  unsigned norm, magic;\n", "  unsigned norm, magic;\n  int u[3], v[3];\n",
+             "\nint ceil_div(", RANK1_FACTORS,
+             "  const auto in = static_cast<const uint8_t*>(src);\n  const auto out = static_cast<uint8_t*>(dst);\n"
+             "  switch (access_width(src, dst, w)) {\n    case kVectors: return launch_filter3",
+             "  packed = packed && rank1(taps.k, taps.u, taps.v);\n"
+             "  const auto in = static_cast<const uint8_t*>(src);\n  const auto out = static_cast<uint8_t*>(dst);\n"
+             "  switch (access_width(src, dst, w)) {\n    case kVectors: return launch_filter3")
+    return replace_span(s, "// K13's outputs at the lane's 16 columns", "// The warp's (frame, strip",
+                        RANK1_FILTER_WORDS)
+
+
+# The 4-byte path with lane l on words l + 32k of its segment, so that each
+# load instruction of the warp reads 128 consecutive bytes; the 16-byte and
+# byte paths keep the lane's consecutive columns.
+STRIDED_NEIGHBOURS = r"""template <Access A>
+__device__ __forceinline__ void neighbours(const unsigned v[4], unsigned left, unsigned right,
+                                           int lane, unsigned prev[4], unsigned next[4]) {
+  if (A == kWords) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      prev[k] = __shfl_sync(kFull, v[k], (lane + 31) & 31);
+      next[k] = __shfl_sync(kFull, v[k], (lane + 1) & 31);
+    }
+    // lane 0's left neighbour of word k is lane 31's word k - 1, lane 31's right one lane 0's k + 1
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 3; k >= 1; --k) prev[k] = prev[k - 1];
+      prev[0] = left << 24;
+    }
+    if (lane == 31) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) next[k] = next[k + 1];
+      next[3] = right;
+    }
+  } else {
+    const unsigned up = __shfl_up_sync(kFull, v[3], 1);
+    const unsigned down = __shfl_down_sync(kFull, v[0], 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      prev[k] = k == 0 ? (lane == 0 ? left << 24 : up) : v[k - 1];
+      next[k] = k == 3 ? (lane == 31 ? right : down) : v[k + 1];
+    }
+  }
+}
+
+"""
+
+
+def replace_n(text, old, new, n):
+    """``text`` with the ``n`` occurrences of ``old`` replaced by ``new``."""
+    if text.count(old) != n:
+        raise AssertionError(f"{old[:80]!r} is not in the source {n} times")
+    return text.replace(old, new)
+
+
+def _strided_words(s):
+    s = replace_span(s, "__device__ __forceinline__ void neighbours(",
+                     "template <Access A>\n__device__ __forceinline__ void store_row",
+                     STRIDED_NEIGHBOURS)
+    # the 4-byte path's loads and stores
+    s = replace_n(s, "      const int x = word_col(seg, lane, k);",
+                  "      const int x = seg + 128 * k + 4 * lane;", 2)
+    s = edit(s, "template <bool kErode>\n__device__ __forceinline__ void morph_words(",
+             "template <Access A, bool kErode>\n__device__ __forceinline__ void morph_words(",
+             "morph_words<kErode>(", "morph_words<A, kErode>(",
+             "__device__ __forceinline__ Windows windows(",
+             "template <Access A>\n__device__ __forceinline__ Windows windows(")
+    s = replace_n(s, "  neighbours(", "  neighbours<A>(", 2)
+    return replace_n(s, "= windows(", "= windows<A>(", 4)
+
+
+STENCIL3_VARIANTS = {
+    "committed": lambda s: s,
+    "words_strided": _strided_words,
+    "bytes_for_words": lambda s: edit(s, "(a & 3) == 0 ? kWords : kBytes", "kBytes"),
+    **{f"strip{h}": const("kStrip", h) for h in (8, 16, 32, 64, 128)},
+    "rank1": _stencil3_rank1,
+}
+
+# K18 as a ring of kRingStages shared-memory stages, each x and y chunks of
+# kRingBytes filled by bulk copies that complete on the stage's mbarrier; the
+# block adds in place and stores the stage with a bulk copy.  Aligned operands
+# only; the byte path stays the committed kernel's.
+BULK_RING = r'''
+constexpr int kRingStages = 4;
+constexpr int kRingBytes = 8192;  // bytes of each operand a stage holds
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ring_load(uint8_t* stage, unsigned long long* bar, const uint8_t* a,
+                                          const uint8_t* b, size_t off, unsigned len) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(2 * len) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(stage)), "l"(a + off), "r"(len), "r"(smem_u32(bar)) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(stage + kRingBytes)), "l"(b + off), "r"(len), "r"(smem_u32(bar)) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+    triad_ring_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                      uint8_t* __restrict__ out, size_t n, size_t n_vec) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ __align__(8) unsigned long long full[kRingStages];
+  const size_t bytes = n_vec * 16;
+  const size_t chunks = (bytes + kRingBytes - 1) / kRingBytes;
+  auto len_of = [&](size_t c) {
+    return static_cast<unsigned>(bytes - c * kRingBytes < kRingBytes ? bytes - c * kRingBytes
+                                                                     : kRingBytes);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&full[s])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < kRingStages; ++s) {
+      const size_t c = blockIdx.x + static_cast<size_t>(s) * gridDim.x;
+      if (c < chunks) ring_load(ring + 2 * s * kRingBytes, &full[s], a, b, c * kRingBytes, len_of(c));
+    }
+  }
+  __syncthreads();
+  int i = 0;
+  for (size_t c = blockIdx.x; c < chunks; c += gridDim.x, ++i) {
+    const int s = i % kRingStages;
+    const unsigned parity = (i / kRingStages) & 1;
+    unsigned done = 0;
+    for (unsigned spins = 0; !done; ++spins) {
+      if (spins > (1u << 22)) asm volatile("trap;");  // a lost completion faults, not hangs
+      asm volatile(
+          "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+          : "=r"(done) : "r"(smem_u32(&full[s])), "r"(parity) : "memory");
+    }
+    uint8_t* stage = ring + 2 * s * kRingBytes;
+    uint4* sx = reinterpret_cast<uint4*>(stage);
+    const uint4* sy = reinterpret_cast<const uint4*>(stage + kRingBytes);
+    const unsigned len = len_of(c);
+    for (unsigned v = threadIdx.x; v < len / 16; v += kThreads) {
+      const uint4 p = sx[v], q = sy[v];
+      sx[v] = make_uint4(__vadd4(p.x, q.x), __vadd4(p.y, q.y), __vadd4(p.z, q.z), __vadd4(p.w, q.w));
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                       out + c * kRingBytes), "r"(smem_u32(stage)), "r"(len) : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      const size_t next = c + static_cast<size_t>(kRingStages) * gridDim.x;
+      if (next < chunks) {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        ring_load(stage, &full[s], a, b, next * kRingBytes, len_of(next));
+      }
+    }
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  const size_t k = n_vec * 16 + threadIdx.x;
+  if (blockIdx.x == 0 && k < n) out[k] = static_cast<uint8_t>(a[k] + b[k]);
+}
+
+bool aligned16('''
+BULK_RING_LAUNCH = r'''  const size_t n_vec = aligned16(a) && aligned16(b) && aligned16(out) ? n / 16 : 0;
+  if (n_vec > 0) {
+    const int smem = 2 * kRingStages * kRingBytes;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(triad_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const size_t chunks = (n_vec * 16 + kRingBytes - 1) / kRingBytes;
+    const unsigned grid = static_cast<unsigned>(chunks < 2u * sms ? chunks : 2u * sms);
+    triad_ring_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), static_cast<uint8_t*>(out),
+        n, n_vec);
+    return cudaGetLastError();
+  }
+'''
+
+
+# K18 with several vectors a thread: kTriadVectors vectors of kTriadBytes of
+# each operand, all loads issued before the first add or store, in blocks of
+# kTriadThreads; {loads} and {store} are the accesses (__ldcs / __stcs stream).
+CHUNKED_TRIAD = r"""constexpr int kTriadThreads = {threads};
+constexpr int kTriadVectors = {vectors};
+using TriadVec = {vec};
+
+__device__ __forceinline__ uint4 add_vec(uint4 x, uint4 y) {{
+  return make_uint4(__vadd4(x.x, y.x), __vadd4(x.y, y.y), __vadd4(x.z, y.z), __vadd4(x.w, y.w));
+}}
+
+__device__ __forceinline__ uint2 add_vec(uint2 x, uint2 y) {{
+  return make_uint2(__vadd4(x.x, y.x), __vadd4(x.y, y.y));
+}}
+
+__device__ __forceinline__ unsigned add_vec(unsigned x, unsigned y) {{ return __vadd4(x, y); }}
+
+__global__ void __launch_bounds__(kTriadThreads)
+    triad_kernel(const uint8_t* {restrict}a, const uint8_t* {restrict}b,
+                 uint8_t* {restrict}out, size_t n, size_t n_vec) {{
+  const auto x = reinterpret_cast<const TriadVec*>(a);
+  const auto y = reinterpret_cast<const TriadVec*>(b);
+  const auto o = reinterpret_cast<TriadVec*>(out);
+  const size_t items = n_vec * (16 / sizeof(TriadVec));
+  const size_t i0 = static_cast<size_t>(blockIdx.x) * kTriadThreads * kTriadVectors + threadIdx.x;
+  TriadVec xv[kTriadVectors], yv[kTriadVectors];
+{loads}
+#pragma unroll
+  for (int j = 0; j < kTriadVectors; ++j) {{
+    const size_t i = i0 + static_cast<size_t>(j) * kTriadThreads;
+    if (i < items) {store};
+  }}
+  const size_t k = n_vec * 16 + static_cast<size_t>(blockIdx.x) * kTriadThreads + threadIdx.x;
+  if (k < n) out[k] = static_cast<uint8_t>(a[k] + b[k]);
+}}
+
+// Blocks for kTriadThreads * kTriadVectors items a block, or a thread per tail byte.
+bool triad_blocks(size_t n, size_t n_vec, unsigned* blocks) {{
+  const size_t per_block = kTriadThreads * kTriadVectors * sizeof(TriadVec) / 16;
+  const size_t want = std::max((n_vec + per_block - 1) / per_block,
+                               (n - n_vec * 16 + kTriadThreads - 1) / kTriadThreads);
+  if (want > 0x7fffffffULL) return false;
+  *blocks = static_cast<unsigned>(want);
+  return true;
+}}
+
+"""
+LOADS_TOGETHER = """#pragma unroll
+  for (int j = 0; j < kTriadVectors; ++j) {{
+    const size_t i = i0 + static_cast<size_t>(j) * kTriadThreads;
+    if (i < items) {{
+      xv[j] = {load}(x + i);
+      yv[j] = {load}(y + i);
+    }}
+  }}"""
+LOADS_X_THEN_Y = """#pragma unroll
+  for (int j = 0; j < kTriadVectors; ++j) {{
+    const size_t i = i0 + static_cast<size_t>(j) * kTriadThreads;
+    if (i < items) xv[j] = {load}(x + i);
+  }}
+#pragma unroll
+  for (int j = 0; j < kTriadVectors; ++j) {{
+    const size_t i = i0 + static_cast<size_t>(j) * kTriadThreads;
+    if (i < items) yv[j] = {load}(y + i);
+  }}"""
+
+
+def chunked_triad(threads=256, vectors=1, vec_bytes=16, stream_loads=True, stream_stores=True,
+                  x_then_y=False, restrict=True):
+    """The edit that swaps K18's kernel and launch for CHUNKED_TRIAD with these
+    settings; ``x_then_y`` issues every x load before the first y load, as
+    PyTorch's vectorized elementwise policy orders them."""
+    load = "__ldcs" if stream_loads else "*"
+    loads = (LOADS_X_THEN_Y if x_then_y else LOADS_TOGETHER).format(load=load)
+    body = CHUNKED_TRIAD.format(
+        threads=threads, vectors=vectors, loads=loads,
+        vec={16: "uint4", 8: "uint2", 4: "unsigned"}[vec_bytes],
+        restrict="__restrict__ " if restrict else "",
+        store=("__stcs(o + i, add_vec(xv[j], yv[j]))" if stream_stores
+               else "o[i] = add_vec(xv[j], yv[j])"))
+
+    def make(s):
+        s = replace_span(s, "__global__ void triad_kernel(", "bool aligned16(", body)
+        return edit(s, "if (!blocks_for(n, n_vec, &blocks)) return cudaErrorInvalidConfiguration;\n"
+                       "  triad_kernel<<<blocks, kThreads,",
+                    "if (!triad_blocks(n, n_vec, &blocks)) return cudaErrorInvalidConfiguration;\n"
+                    "  triad_kernel<<<blocks, kTriadThreads,")
+    return make
+
+
+BANDWIDTH_VARIANTS = {
+    "committed": lambda s: s,
+    **{f"vectors{v}": chunked_triad(vectors=v) for v in (1, 2, 4, 8)},
+    **{f"threads128_vectors{v}": chunked_triad(threads=128, vectors=v) for v in (1, 2, 4)},
+    "threads128_bytes8": chunked_triad(threads=128, vec_bytes=8),
+    **{f"bytes4_threads128_vectors{v}": chunked_triad(threads=128, vectors=v, vec_bytes=4)
+       for v in (4, 8)},
+    "x_then_y_vectors4": chunked_triad(vectors=4, x_then_y=True),
+    "x_then_y_bytes4_threads128_vectors4": chunked_triad(threads=128, vectors=4, vec_bytes=4,
+                                                         x_then_y=True),
+    "vectors4_plain": chunked_triad(vectors=4, stream_loads=False, stream_stores=False),
+    "vectors4_streaming_loads_only": chunked_triad(vectors=4, stream_stores=False),
+    "vectors4_streaming_stores_only": chunked_triad(vectors=4, stream_loads=False),
+    # torch.add's own shape for uint8 on this card: 128 threads of two 8-byte vectors
+    "torch_twin": chunked_triad(threads=128, vectors=2, vec_bytes=8, stream_loads=False,
+                                stream_stores=False),
+    "torch_twin_no_restrict": chunked_triad(threads=128, vectors=2, vec_bytes=8,
+                                            stream_loads=False, stream_stores=False,
+                                            restrict=False),
+    # plain ld.global where the restrict-qualified operands let the compiler use ld.global.nc
+    "no_restrict": lambda s: edit(
+        s, "triad_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,\n"
+           "                             uint8_t* __restrict__ out,",
+        "triad_kernel(const uint8_t* a, const uint8_t* b,\n"
+        "                             uint8_t* out,"),
+    "bulk_ring": lambda s: edit(
+        s, "\nbool aligned16(", BULK_RING,
+        "  const size_t n_vec = aligned16(a) && aligned16(b) && aligned16(out) ? n / 16 : 0;\n",
+        BULK_RING_LAUNCH),
+}
+
+
+def preproc_cases(dev):
+    lena = torch.from_numpy(lena_batch(MAIN_N, MAIN_H, MAIN_W)).to(dev)
+    blurred, hist = K.blur_hist(lena, MAIN_R)
+    t = K.otsu(hist, MAIN_H * MAIN_W)
+    h_loc = MAIN_H // 4
+    shard = blurred[:, h_loc - 1:2 * h_loc + 1].contiguous()  # (256, 258, 1024), row0 = h_loc - 1
+    receipt = torch.from_numpy(receipt_batch(MAIN_N)).to(dev)
+    return {
+        "blur_hist": (lena.shape, lambda: K.blur_hist(lena, MAIN_R),
+                      lambda: K.blur_hist_plain(lena, MAIN_R)),
+        "threshold_sobel": (blurred.shape, lambda: K.threshold_sobel(blurred, t, True),
+                            lambda: K.threshold_sobel_plain(blurred, t, True)),
+        "sobel": (lena.shape, lambda: K.threshold_sobel(lena),
+                  lambda: K.threshold_sobel_plain(lena)),
+        "threshold_sobel_window": (
+            shard.shape, lambda: K.threshold_sobel_window(shard, t, h_loc - 1, h_total=MAIN_H),
+            lambda: K.threshold_sobel_window_plain(shard, t, h_loc - 1, h_total=MAIN_H)),
+        "adaptive": (receipt.shape, lambda: K.adaptive(receipt, 15, 5),
+                     lambda: K.adaptive_plain(receipt, 15, 5)),
+    }, {}
+
+
+def stencil3_cases(dev):
+    lena = torch.from_numpy(lena_batch(MAIN_N, MAIN_H, MAIN_W)).to(dev)
+    binary = K.adaptive(torch.from_numpy(receipt_batch(DENSE_N)).to(dev), DENSE_R, DENSE_C)
+    gauss, norm = FILTER_TAPS["blur_gaussian"]
+    return {
+        "filter3": (lena.shape, lambda: K.filter3(lena, gauss, norm),
+                    lambda: K.filter3_plain(lena, gauss, norm)),
+        "morph_dilate": (binary.shape, lambda: K.morph(binary, "dilate"),
+                         lambda: K.morph_plain(binary, "dilate")),
+        "morph_erode": (binary.shape, lambda: K.morph(binary, "erode"),
+                        lambda: K.morph_plain(binary, "erode")),
+    }, {}
+
+
+def bandwidth_cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, y = (torch.randint(0, 256, (512, 512, 1024), dtype=torch.uint8, device=dev, generator=gen)
+            for _ in range(2))  # the probe's 256 MiB
+    out = torch.empty_like(x)
+    cases = {"copy": (x.shape, lambda: K.copy(x), lambda: K.copy_plain(x)),
+             "triad": (x.shape, lambda: K.triad(x, y), lambda: K.triad_plain(x, y))}
+    lib, stream = _build.library(), _build.stream_of(x)
+    # the library calls, and the committed entries called into the library's
+    # output without the wrapper: what the wrapper and a new output cost
+    library = {
+        "copy": {"copy_": lambda: out.copy_(x),
+                 "entry_into_out": lambda: lib.gs_copy(x.data_ptr(), out.data_ptr(), x.numel(),
+                                                       stream)},
+        "triad": {"add_out": lambda: torch.add(x, y, out=out), "add": lambda: torch.add(x, y),
+                  "entry_into_out": lambda: lib.gs_triad(x.data_ptr(), y.data_ptr(),
+                                                         out.data_ptr(), x.numel(), stream)},
+    }
+    return cases, library
+
+
+SOURCES = {
+    "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
+                               "gs_threshold_sobel_window", "gs_adaptive"),
+                PREPROC_VARIANTS, PREPROC_ABLATIONS, preproc_cases, r"threshold_sobel|blur_hist|Used"),
+    "stencil3": ("stencil3.cu", ("gs_morph", "gs_filter3"), STENCIL3_VARIANTS, {},
+                 stencil3_cases, r"morph|filter3|Used"),
+    "bandwidth": ("bandwidth.cu", ("gs_copy", "gs_triad"), BANDWIDTH_VARIANTS, {},
+                  bandwidth_cases, r"triad|copy|Used"),
 }
 
 
@@ -73,114 +571,143 @@ def emit(phase, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
-def build_variants(text, parent):
-    """Compile every variant's preproc.cu at once; return {name: loaded library}."""
-    sources = {}
-    for name, edits in {**VARIANTS, **ABLATIONS}.items():
-        body = text
-        for old, new in edits.items():
-            if body.count(old) != 1:
-                raise AssertionError(f"{name}: {old!r} is not in preproc.cu once")
-            body = body.replace(old, new)
-        sources[name] = body
+def build_variants(source, entries, variants, parent):
+    """Compile every variant of ``source`` at once; return ({name: loaded library},
+    {name: ptxas lines}, {name: why it was dropped})."""
+    text = (_build.CSRC_DIR / source).read_text()
+    sources, failed = {}, {}
+    for name, make in variants.items():
+        try:
+            sources[name] = make(text)
+        except AssertionError as e:
+            failed[name] = f"edit: {e}"
     for path in parent:
-        with open(os.path.join(path, "grayskull_tpu_torch", "csrc", "preproc.cu")) as f:
+        with open(os.path.join(path, "grayskull_tpu_torch", "csrc", source)) as f:
             sources[os.path.basename(os.path.normpath(path))] = f.read()
     jobs = {}
+    stem = source.removesuffix(".cu")
     for name, body in sources.items():
-        d = _build.BUILD_DIR / "sweep" / name
+        d = _build.BUILD_DIR / "sweep" / stem / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "preproc.cu").write_text(body)
-        cmd = _build.compile_command(d / "preproc.cu", d / "preproc.o") + ["-Xptxas", "-v"]
+        (d / source).write_text(body)
+        cmd = _build.compile_command(d / source, d / f"{stem}.o") + ["-Xptxas", "-v"]
         jobs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True))
     libs, regs = {}, {}
     for name, (d, proc) in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+            failed[name] = f"nvcc failed:\n{out[-3000:]}"
+            continue
         regs[name] = [line.split("ptxas info    : ")[-1] for line in out.splitlines()
                       if "registers" in line or "spill" in line]
-        subprocess.run(_build.link_command([d / "preproc.o"], d / "libpreproc.so"), check=True)
-        lib = ctypes.CDLL(str(d / "libpreproc.so"))
-        for entry in ENTRIES:
+        subprocess.run(_build.link_command([d / f"{stem}.o"], d / f"lib{stem}.so"), check=True)
+        lib = ctypes.CDLL(str(d / f"lib{stem}.so"))
+        for entry in entries:
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
-        lib.gs_error_string.argtypes = (ctypes.c_int,)
-        lib.gs_error_string.restype = ctypes.c_char_p
         libs[name] = lib
-    return libs, regs
+    return libs, regs, failed
+
+
+class _Errors:
+    """Stands in for the committed library's ``gs_error_string`` while a variant
+    library (which may not define it) is loaded."""
+
+    def __init__(self, lib, committed):
+        self._lib, self.gs_error_string = lib, committed.gs_error_string
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", choices=sorted(SOURCES), default="preproc",
+                    help="the csrc file whose variants are timed")
     ap.add_argument("--parent", action="append", default=[],
-                    help="a checkout whose preproc.cu is timed too (repeatable)")
+                    help="a checkout whose file of the same name is timed too (repeatable)")
+    ap.add_argument("--only", action="append", default=[],
+                    help="build only this variant (repeatable; default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_sweep: no CUDA device", file=sys.stderr)
         return 1
+    source, entries, variants, ablations, make_cases, reg_pattern = SOURCES[args.source]
+    if args.only:
+        variants = {k: v for k, v in variants.items() if k in args.only}
+        ablations = {k: v for k, v in ablations.items() if k in args.only}
     dev = torch.device("cuda", 0)
     card = card_line()
     t0 = time.perf_counter()
-    committed = _build.library()  # K3 and the inputs come from the committed build
-    text = (_build.CSRC_DIR / "preproc.cu").read_text()
-    libs, regs = build_variants(text, args.parent)
-    emit("sweep_build", card=card, seconds=time.perf_counter() - t0, variants=list(libs),
-         ptxas={name: [r for r in lines if re.search(r"threshold_sobel|blur_hist|Used", r)]
+    committed = _build.library()  # the inputs come from the committed build
+    libs, regs, failed = build_variants(source, entries, {**variants, **ablations}, args.parent)
+    # the committed file and the --parent trees are held, not dropped: only a text edit may fail
+    held = {"committed", *(os.path.basename(os.path.normpath(p)) for p in args.parent)}
+    if held & set(failed):
+        raise AssertionError(f"a committed or parent build failed: "
+                             f"{ {k: v for k, v in failed.items() if k in held} }")
+    libs = {name: _Errors(lib, committed) for name, lib in libs.items()}
+    emit("sweep_build", card=card, source=source, seconds=time.perf_counter() - t0,
+         variants=list(libs), failed=failed,
+         ptxas={name: [r for r in lines if re.search(reg_pattern, r)]
                 for name, lines in regs.items()})
 
-    lena = torch.from_numpy(lena_batch(MAIN_N, MAIN_H, MAIN_W)).to(dev)
-    blurred, hist = K.blur_hist(lena, MAIN_R)
-    t = K.otsu(hist, MAIN_H * MAIN_W)
-    h_loc = MAIN_H // 4
-    shard = blurred[:, h_loc - 1:2 * h_loc + 1].contiguous()  # (256, 258, 1024), row0 = h_loc - 1
-    receipt = torch.from_numpy(receipt_batch(MAIN_N)).to(dev)
-    cases = {
-        "blur_hist": (lambda: K.blur_hist(lena, MAIN_R),
-                      lambda: K.blur_hist_plain(lena, MAIN_R)),
-        "threshold_sobel": (lambda: K.threshold_sobel(blurred, t, True),
-                            lambda: K.threshold_sobel_plain(blurred, t, True)),
-        "sobel": (lambda: K.threshold_sobel(lena), lambda: K.threshold_sobel_plain(lena)),
-        "threshold_sobel_window": (
-            lambda: K.threshold_sobel_window(shard, t, h_loc - 1, h_total=MAIN_H),
-            lambda: K.threshold_sobel_window_plain(shard, t, h_loc - 1, h_total=MAIN_H)),
-        "adaptive": (lambda: K.adaptive(receipt, 15, 5),
-                     lambda: K.adaptive_plain(receipt, 15, 5)),
-    }
-    shapes = {"blur_hist": lena.shape, "threshold_sobel": blurred.shape, "sobel": lena.shape,
-              "threshold_sobel_window": shard.shape, "adaptive": receipt.shape}
-    refs = {name: plain() for name, (_, plain) in cases.items()}
-    for name, lib in libs.items():
-        if name in ABLATIONS:
+    cases, library = make_cases(dev)
+    refs = {kernel: plain() for kernel, (_, _, plain) in cases.items()}
+    for name, lib in list(libs.items()):
+        if name in ablations:
             continue
         _build._lib = lib
-        for kernel, (fn, _) in cases.items():
-            got, ref = fn(), refs[kernel]
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            for a, b in zip(got, ref):
-                if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-                    raise AssertionError(f"{name} {kernel} differs from the plain version")
-        torch.cuda.synchronize()
-    emit("sweep_checks", ok=True, variants=[v for v in libs if v not in ABLATIONS],
-         unchecked_ablations=list(ABLATIONS), kernels=list(cases), max_abs_err=0)
+        try:
+            for kernel, (_, fn, _) in cases.items():
+                got, ref = fn(), refs[kernel]
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                for a, b in zip(got, ref):
+                    if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                        raise AssertionError(f"{kernel} differs from the plain version")
+            torch.cuda.synchronize()
+        except (AssertionError, RuntimeError) as e:
+            if "CUDA error" in str(e) or name in held:
+                raise  # a fault on the card, or a committed or parent kernel that is wrong
+            failed[name] = f"check: {e}"
+            del libs[name]
+    _build._lib = committed
+    emit("sweep_checks", ok=True, variants=[v for v in libs if v not in ablations],
+         unchecked_ablations=list(ablations), failed=failed, kernels=list(cases), max_abs_err=0)
 
     order = list(libs)
     times = {name: {kernel: [] for kernel in cases} for name in order}
+    lib_times = {(kernel, label): [] for kernel, fns in library.items() for label in fns}
     for turn in (order, order[::-1]):
         for name in turn:
             _build._lib = libs[name]
-            for kernel, (fn, _) in cases.items():
+            for kernel, (_, fn, _) in cases.items():
                 times[name][kernel].append(timeit(fn) * 1e3)
+        for kernel, fns in library.items():
+            for label, fn in fns.items():
+                lib_times[kernel, label].append(timeit(fn) * 1e3)
     _build._lib = committed
-    for kernel in cases:
-        emit("sweep", card=card, kernel=kernel, shape=list(shapes[kernel]),
-             ms={name: times[name][kernel] for name in order},
-             mean_ms={name: sum(times[name][kernel]) / 2 for name in order},
+    for kernel, (shape, _, _) in cases.items():
+        ms = {name: times[name][kernel] for name in order}
+        for label in library.get(kernel, ()):
+            ms[f"library:{label}"] = lib_times[kernel, label]
+        emit("sweep", card=card, source=source, kernel=kernel, shape=list(shape), ms=ms,
+             mean_ms={name: sum(v) / len(v) for name, v in ms.items()},
              windows="profiling.timeit (median of 3 windows of 20 calls), variants in order "
-                     "then in reverse")
+                     "then in reverse" + (", the library call after each turn" if library else ""))
+    if library:  # the library calls' own kernels, by name, from the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fns in library.values():
+                for fn in fns.values():
+                    fn()
+            torch.cuda.synchronize()
+        emit("library_kernels", kernels=sorted({e.name for e in prof.events()
+                                                if e.device_type == torch.autograd.DeviceType.CUDA}))
     emit("elapsed", seconds=time.perf_counter() - t0)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,11 @@
 // wait their turn.  A grid-stride loop over one wave of blocks, tried first,
 // stayed below cudaMemcpyAsync.  K18
 // adds the four words of a uint4 with __vadd4, a per-byte add that wraps as
-// uint8 does.  Thread i also moves byte n_vec * 16 + i when that is below n:
+// uint8 does.  chip_sweep.py --source bandwidth swaps in K18 kernels that
+// move 1 to 8 vectors of 4, 8 or 16 bytes a thread, with or without
+// streaming loads and stores, and a ring of bulk copies (cp.async.bulk): on
+// the H100 none separated from this one beyond the spread, and none reached
+// torch.add.  Thread i also moves byte n_vec * 16 + i when that is below n:
 // the bytes past the last whole 16, or all of them when a pointer is not
 // 16-byte aligned.
 //

@@ -287,7 +287,7 @@ def test_blur_kernels_on_widths_past_16_byte_words_on_card(cuda_device, shape):
 @pytest.mark.cuda
 def test_stencil_kernels_on_an_unaligned_batch_on_card(cuda_device):
     """``x[1:]`` of a contiguous (3, 7, 9) batch starts 63 bytes in: K1, K11,
-    K2, K15 and K16 take their byte paths on it."""
+    K2, K15, K16, K12 and K13 take their byte paths on it."""
     x = _frames((3, 7, 9), 75, cuda_device)[1:]
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     t = torch.tensor([200, 31], dtype=torch.uint8, device=cuda_device)
@@ -300,6 +300,7 @@ def test_stencil_kernels_on_an_unaligned_batch_on_card(cuda_device):
     _adaptive_cases(x)
     _sobel_cases(x, t)
     _window_sobel_cases(x, t, 15)
+    _stencil3_cases(x)
 
 
 @pytest.mark.cuda
@@ -514,21 +515,33 @@ def test_host_arrays_go_to_the_card(cuda_device):
 DENSE_TAPS = [(((0, -1, 0), (-1, 5, -1), (0, -1, 0)), 1), (((-2, -1, 0), (-1, 1, 1), (0, 1, 2)), 1),
               (((1, 1, 1),) * 3, 9), (((1, 2, 1), (2, 4, 2), (1, 2, 1)), 16),
               (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 1), (((-1, -2, -1), (0, 0, 0), (1, 2, 1)), 7),
-              (((300, -1000, 5), (0, 70000, 0), (1, 2, -99999)), 3)]
+              (((300, -1000, 5), (0, 70000, 0), (1, 2, -99999)), 3),
+              # the int8 edge (K13's dp4a path) and just past it (its multiply-add path)
+              (((127, -128, 127), (-128, 127, -128), (127, -128, 127)), 2),
+              (((128, -129, 0), (1, 2, 3), (-129, 0, 128)), 5)]
+
+
+def _stencil3_cases(imgs):
+    """K12 both ways and K13 with every DENSE_TAPS entry."""
+    for op in ("erode", "dilate"):
+        assert torch.equal(K.morph(imgs, op), K.morph_plain(imgs, op)), op
+    for taps, norm in DENSE_TAPS:
+        assert torch.equal(K.filter3(imgs, taps, norm), K.filter3_plain(imgs, taps, norm)), taps
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(1, 1, 9), (2, 5, 1)])
+@pytest.mark.parametrize("shape", SHAPES + [(1, 40, 1024), (2, 64, 7), (1, 70, 1000), (1, 1, 1),
+                                            (1, 1, 9), (2, 5, 1)])
 def test_dense_kernels_match_plain_on_card(cuda_device, shape):
+    """K11-K13; K12 and K13 on their 16-byte (1024 and 128 wide), 4-byte (612,
+    1000, 200 and 8) and byte paths (7, 129 and the one-pixel, one-row and
+    one-column frames)."""
     imgs = _frames(shape, 60, cuda_device)
     for r in (0, 1, 2, 6, 15, 40, 300):
         for c in (-3, 0, 5, 40, -2**31):
             got = K.adaptive(imgs, r, c)
             assert got.is_cuda and torch.equal(got, K.adaptive_plain(imgs, r, c)), (r, c)
-    for op in ("erode", "dilate"):
-        assert torch.equal(K.morph(imgs, op), K.morph_plain(imgs, op)), op
-    for taps, norm in DENSE_TAPS:
-        assert torch.equal(K.filter3(imgs, taps, norm), K.filter3_plain(imgs, taps, norm)), taps
+    _stencil3_cases(imgs)
 
 
 @pytest.mark.cuda
@@ -596,12 +609,17 @@ def test_window_kernels_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [1, 15, 17, 2**20 + 3, 2**26])
+@pytest.mark.parametrize("size", [1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097,
+                                  16383, 16384, 16385, 2**20 + 3, 2**26])
 def test_copy_and_triad_match_plain_on_card(cuda_device, size):
-    x, y = (_frames((size + 1,), 71 + i, cuda_device) for i in range(2))
-    for a, b in ((x[:size], y[:size]), (x[1:], y[1:])):  # 16-byte aligned, then one byte off
-        assert torch.equal(K.copy(a), K.copy_plain(a))
-        assert torch.equal(K.triad(a, b), K.triad_plain(a, b))
+    """Sizes around one K18 thread's vector (16 bytes) and one 256-thread
+    block's (4096), and the 64, 2048 and 16384 bytes of chip_sweep.py's chunked
+    variants, the pointers 16-byte aligned, then 1, 4 and 8 bytes off."""
+    x, y = (_frames((size + 8,), 71 + i, cuda_device) for i in range(2))
+    for off in (0, 1, 4, 8):
+        a, b = x[off:off + size], y[off:off + size]
+        assert torch.equal(K.copy(a), K.copy_plain(a)), off
+        assert torch.equal(K.triad(a, b), K.triad_plain(a, b)), off
 
 
 @pytest.mark.cuda

@@ -21,9 +21,9 @@ from grayskull_tpu.core import LbpCascade as JaxLbpCascade
 from grayskull_tpu.kernels.integral import integral_pallas
 from grayskull_tpu.kernels.lbp import lbp_eval_scale as jax_lbp_eval_scale
 from grayskull_tpu.kernels.lbp import lbp_pad_for
-from grayskull_tpu.kernels.preproc import (blur_pallas, fused_blur_hist,
-                                           fused_threshold_sobel, preproc_available,
-                                           sobel_pallas)
+from grayskull_tpu.kernels.preproc import (blur_pallas, filter3_pallas, fused_blur_hist,
+                                           fused_threshold_sobel, morph_pallas,
+                                           preproc_available, sobel_pallas)
 from grayskull_tpu.ops.histogram import otsu_from_histogram as jax_otsu_from_histogram
 from grayskull_tpu.ops.lbp import _eval_windows_jit
 from grayskull_tpu_torch import kernels as K
@@ -316,6 +316,197 @@ def test_binary_sobel_is_0_127_255_on_every_neighbourhood(t):
     out = ((((words + 0x7F7F7F7F) >> 7) & 0x01010101) * 0xFF) & 0xFFFFFFFF
     got = (out[:, None] >> (8 * np.arange(4, dtype=np.uint64))) & 0xFF
     np.testing.assert_array_equal(got, np.where(quads == 0, 0, 255))
+
+
+def _byte_perm(x, y, s):
+    """CUDA's ``__byte_perm`` on arrays of 32-bit words (uint64): byte i of the
+    result is byte ``(s >> 4i) & 7`` of the 8 bytes y:x."""
+    v = (y << np.uint64(32)) | x
+    out = np.zeros_like(x)
+    for i in range(4):
+        sel = np.uint64(8 * ((s >> (4 * i)) & 7))
+        out |= ((v >> sel) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out
+
+
+def _row_words(frames, outside):
+    """(N, H, W) uint8 -> (N, H + 2, ceil(W / 4) + 2) little-endian words (uint64)
+    of the frames framed by a row, a column and a whole word of ``outside``
+    bytes: the words ``csrc/stencil3.cu:load_row`` leaves, with the words
+    just left and right of the frame that ``neighbours`` takes the border
+    bytes from."""
+    n, h, w = frames.shape
+    wp = -(-w // 4) * 4
+    x = np.full((n, h + 2, wp + 8), outside, np.uint64)
+    x[:, 1:h + 1, 4:4 + w] = frames
+    return sum(x[..., j::4] << np.uint64(8 * j) for j in range(4))
+
+
+def _word_bytes(words, w):
+    """(..., K) words -> (..., w) uint8: bytes 0..3 of each word, in order."""
+    b = np.stack([(words >> np.uint64(8 * j)) & np.uint64(0xFF) for j in range(4)], -1)
+    return b.reshape(*words.shape[:-1], -1)[..., :w].astype(np.uint8)
+
+
+def _filter3_replay(frames, taps, norm, packed):
+    """K13 (``csrc/stencil3.cu:filter_words``) in numpy.  The window of column
+    x in a row is the word of bytes [x-1, x, x+1, x+2]: for byte j of a word
+    v between its neighbour words prev and next, ``__byte_perm(prev, v,
+    0x6543)``, v, ``__byte_perm(v, next, 0x4321)``, ``__byte_perm(v, next,
+    0x5432)``.  ``packed``: three dp4a's of the unsigned window bytes against
+    the row's taps packed as signed bytes with a zero fourth byte; else a
+    uint32 multiply-add per tap.  Then the sum read as uint32, ``div_exact``
+    by ``div_magic(norm)``, the quotient read as int32 and clamped to 0..255."""
+    n, h, w = frames.shape
+    words = _row_words(frames, 0)
+    prev, v, nxt = words[..., :-2], words[..., 1:-1], words[..., 2:]
+    wins = [_byte_perm(prev, v, 0x6543), v, _byte_perm(v, nxt, 0x4321), _byte_perm(v, nxt, 0x5432)]
+    k = [[int(t) for t in row] for row in taps]
+    sums = []
+    for j in range(4):
+        acc = np.zeros((n, h, v.shape[-1]), np.int64)
+        for dy in range(3):
+            win = wins[j][:, dy:dy + h]
+            if packed:
+                tw = sum((k[dy][i] & 0xFF) << (8 * i) for i in range(3))  # byte 3 is 0
+                for i in range(4):
+                    u8 = ((win >> np.uint64(8 * i)) & np.uint64(0xFF)).astype(np.int64)
+                    s8 = ((tw >> (8 * i)) & 0xFF) - (256 if (tw >> (8 * i)) & 0x80 else 0)
+                    acc += u8 * s8
+            else:
+                for i in range(3):
+                    u8 = ((win >> np.uint64(8 * i)) & np.uint64(0xFF)).astype(np.int64)
+                    acc = (acc + u8 * (k[dy][i] & 0xFFFFFFFF)) & 0xFFFFFFFF
+        if packed:
+            assert np.abs(acc).max() <= 9 * 255 * 128  # the int32 sum never wraps
+        sums.append(acc & 0xFFFFFFFF)
+    s = np.stack(sums, -1).reshape(n, h, -1)[..., :w].astype(np.uint64)
+    d = np.uint64(norm)
+    m = np.uint64(2**32 - 1 if norm == 1 else (2**32 - 1) // norm + 1)
+    q = (s * m) >> np.uint64(32)  # __umulhi: s, m < 2^32, so s * m < 2^64
+    qd = q * d
+    q = q - (qd > s).astype(np.uint64) + (qd + d <= s).astype(np.uint64)
+    np.testing.assert_array_equal(q, s // d)
+    q32 = np.where(q >= 2**31, q.astype(np.int64) - 2**32, q.astype(np.int64))
+    return np.clip(q32, 0, 255).astype(np.uint8)
+
+
+INT8_TAPS = {"sharpen": ((0, -1, 0), (-1, 5, -1), (0, -1, 0)),
+             "emboss": ((-2, -1, 0), (-1, 1, 1), (0, 1, 2)),
+             "blur_box": ((1, 1, 1), (1, 1, 1), (1, 1, 1)),
+             "blur_gaussian": ((1, 2, 1), (2, 4, 2), (1, 2, 1)),
+             "sobel_y": ((-1, -2, -1), (0, 0, 0), (1, 2, 1))}
+
+
+@pytest.mark.parametrize("name", sorted(INT8_TAPS))
+def test_filter3_packed_dot_products_replayed(name):
+    """K13's int8 path replayed in numpy equals the plain version and JAX's
+    XLA ``filter2d`` for norms 1 .. 255 and at 2^31 and 2^32 - 1, and JAX
+    ``filter3_pallas`` (interpret mode) at norms 1 and 7, one each side of its
+    sign test (the norm does not change what it compiles), which holds only
+    below about 16 M: a negative sum clamps to 0 with norm 1, to 255 with
+    norms 2 .. 255, and the cast quotient decides past 2^31."""
+    taps = INT8_TAPS[name]
+    frames = _frames((2, 11, 37), 30)
+    frames[1, :4] = 255  # all-white rows: the largest sums, and the most negative ones
+    for norm in (1, 7):
+        _eq(torch.from_numpy(_filter3_replay(frames, taps, norm, packed=True)),
+            filter3_pallas(frames, taps, norm, interpret=True),
+            f"{name} norm {norm} vs filter3_pallas")
+    for norm in (1, 2, 7, 9, 16, 255, 2**31, 2**32 - 1):
+        got = _filter3_replay(frames, taps, norm, packed=True)
+        _eq(K.filter3(torch.from_numpy(frames), taps, norm), got, f"{name} norm {norm}")
+        _eq(torch.from_numpy(got), gs.filter2d(frames, np.array(taps), norm),
+            f"{name} norm {norm} vs filter2d")
+
+
+def test_filter3_int8_boundary_taps():
+    """``gs_filter3`` packs the taps only where every one fits int8: 127 and
+    -128 take the dp4a path, 128 and -129 the uint32 multiply-add path (read
+    as signed bytes they would be -128 and 127).  Each path, replayed, equals
+    the plain version and JAX."""
+    frames = _frames((2, 9, 21), 31)
+    edge = ((127, -128, 127), (-128, 127, -128), (127, -128, 127))
+    past = ((128, -129, 0), (1, 2, 3), (-129, 0, 128))
+    for norm in (1, 2, 255):
+        got = _filter3_replay(frames, edge, norm, packed=True)
+        _eq(K.filter3(torch.from_numpy(frames), edge, norm), got, f"127/-128 norm {norm}")
+        _eq(torch.from_numpy(got), gs.filter2d(frames, np.array(edge), norm),
+            f"127/-128 norm {norm} vs filter2d")
+        if norm == 2:
+            _eq(torch.from_numpy(got), filter3_pallas(frames, edge, norm, interpret=True),
+                f"127/-128 norm {norm} vs filter3_pallas")
+        got = _filter3_replay(frames, past, norm, packed=False)
+        _eq(K.filter3(torch.from_numpy(frames), past, norm), got, f"128/-129 norm {norm}")
+        _eq(torch.from_numpy(got), gs.filter2d(frames, np.array(past), norm),
+            f"128/-129 norm {norm} vs filter2d")
+        assert not np.array_equal(_filter3_replay(frames, past, norm, packed=True), got)
+    assert _filter3_replay(frames, edge, 1, packed=False).tobytes() == \
+        _filter3_replay(frames, edge, 1, packed=True).tobytes()
+
+
+def _vop4(op, a, b):
+    """``__vminu4`` / ``__vmaxu4``: the bytewise unsigned min or max of two words."""
+    out = np.zeros_like(a)
+    for i in range(4):
+        sh = np.uint64(8 * i)
+        out |= op((a >> sh) & np.uint64(0xFF), (b >> sh) & np.uint64(0xFF)) << sh
+    return out
+
+
+@pytest.mark.parametrize("op", ["erode", "dilate"])
+def test_morph_simd_words_replayed(op):
+    """K12 (``csrc/stencil3.cu:morph_words``) in numpy: the vertical min or max
+    of three rows' words, then of each word and its two ``__byte_perm``-shifted
+    neighbours, the frame bordered by the op-neutral byte.  On rows of width
+    612 (config #2's, the 4-byte path), 16, 17 and 1 it equals the plain
+    version and JAX (``morph_pallas`` in interpret mode where the frame is 8
+    wide, else ``gs.erode`` / ``gs.dilate``).  The lane layout (lane l holds
+    words 4l .. 4l + 3 of a 512-column segment; word 0's left neighbour is
+    lane l - 1's word 3 by ``__shfl_up_sync``, word 3's right one lane l + 1's
+    word 0 by ``__shfl_down_sync``) gives every word its true neighbours."""
+    fn = np.minimum if op == "erode" else np.maximum
+    neutral = 255 if op == "erode" else 0
+    rng = np.random.default_rng(32)
+    a, b = rng.integers(0, 2**32, (2, 4096), dtype=np.uint64)
+    want = _word_bytes(a, 16384).astype(np.int64), _word_bytes(b, 16384).astype(np.int64)
+    np.testing.assert_array_equal(_word_bytes(_vop4(fn, a, b), 16384), fn(*want))
+    for w in (612, 16, 17, 1):
+        frames = _frames((2, 9, w), 33 + w)
+        frames[1, 3:6] = 255 - neutral  # a band of the absorbing value
+        words = _row_words(frames, neutral)
+        vert = _vop4(fn, _vop4(fn, words[:, :-2], words[:, 1:-1]), words[:, 2:])
+        prev, v, nxt = vert[..., :-2], vert[..., 1:-1], vert[..., 2:]
+        out = _vop4(fn, _vop4(fn, _byte_perm(prev, v, 0x6543), v), _byte_perm(v, nxt, 0x4321))
+        got = _word_bytes(out, w)
+        _eq(K.morph(torch.from_numpy(frames), op), got, f"width {w}")
+        ref = morph_pallas(frames, op, interpret=True) if w >= 8 else getattr(gs, op)(frames)
+        _eq(torch.from_numpy(got), ref, f"width {w} vs JAX")
+    # lane l, word k of a segment holds word 4l + k; the lane rules give words i - 1 and i + 1
+    idx = np.arange(128).reshape(32, 4)  # [lane, k]
+    left = np.concatenate([np.roll(idx[:, 3:], 1, axis=0), idx[:, :3]], axis=1)
+    right = np.concatenate([idx[:, 1:], np.roll(idx[:, :1], -1, axis=0)], axis=1)
+    # lane 0's word 0 takes the left byte, lane 31's word 3 the right byte
+    np.testing.assert_array_equal(left.ravel()[1:], np.arange(127))
+    np.testing.assert_array_equal(right.ravel()[:-1], np.arange(1, 128))
+
+
+def test_stencil3_access_width_follows_the_kernel():
+    """chip_smoke.py names the access width of K12's launches on config #2
+    with ``stencil3_access``, which repeats ``csrc/stencil3.cu:access_width``:
+    16 bytes where the row width and both addresses are multiples of 16, 4
+    where they are multiples of 4 (config #2's 612-byte rows), else 1."""
+    import chip_smoke
+
+    src = (_build.CSRC_DIR / "stencil3.cu").read_text()
+    assert "return (a & 15) == 0 ? kVectors : (a & 3) == 0 ? kWords : kBytes;" in src
+    base = 1 << 21
+    for w, want in ((612, 4), (1024, 16), (7, 1), (1000, 4), (129, 1)):
+        assert chip_smoke.stencil3_access(base, base + 512 * w, w) == want, w
+    assert chip_smoke.stencil3_access(base + 4, base, 1024) == 4
+    assert chip_smoke.stencil3_access(base, base + 8, 1024) == 4
+    assert chip_smoke.stencil3_access(base + 1, base, 612) == 1
+    assert chip_smoke.stencil3_access(base, base + 2, 1024) == 1
 
 
 def test_build_command_targets_hopper_without_fma(tmp_path):
