@@ -47,16 +47,19 @@ counts set to 0 just before it and read just after:
   K17 ``copy`` and K18 ``triad`` over 256 MiB).
 
 Then it times the paths with CUDA events, profiles preprocess, detect_faces,
-the scanner, config #2, the resize and the sharded preprocess
-(``torch.profiler``: device time by kernel and op, idle share, host enqueue
-time), takes K7's and K8's device time from the profiler, and measures K5's
-real work: each window's exit stage on two faces frames (the plain version
-with the cascade cut to its first s stages), the weaks a window runs and the
-divergence of 32 neighbouring windows, from which K5's bound is counted.
+orb_extract, track, the scanner, config #2, the resize and the sharded
+preprocess (``torch.profiler``: device time by kernel and op, idle share, host
+enqueue time), takes K6's, K7's and K8's device time from the profiler, and
+measures K5's real work: each window's exit stage on two faces frames (the
+plain version with the cascade cut to its first s stages), the weaks a window
+runs and the divergence of 32 neighbouring windows, from which K5's bound is
+counted.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
-time, and its bound again at the measured copy rate, ``bound_ms_at_copy``)
+time, and its bound again at the measured copy rate, ``bound_ms_at_copy``;
+operations are counted by kind, FP32 or INT32, at the issue rate of their
+kind from the card's SM count and top clock, where a row has restated them)
 and the card's ``nvidia-smi`` name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
 non-zero; without a CUDA device it exits 1 and prints no result.
@@ -152,6 +155,13 @@ TRACK_KPS, PAIR_CAP, PAIR_DIST = 2500, 500, 64
 FAST_SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (16, 480, 640),
                (1, 2900, 2900)]  # the last is past 2^23 pixels: int64 keys
 FAST_THRESHOLDS = (0, 5, 20, 60, 200)
+# K6's edges: widths 7 .. 40 and 641 (its segments write 240 columns), frames
+# under 7 rows, 65,537 frames, and frames at byte offsets 1 .. 15 of a buffer
+# (the byte path)
+FAST_EDGE_SHAPES = [(1, 20, w) for w in range(7, 41)] + [(2, 30, 641), (2, 6, 50), (1, 3, 9),
+                                                          (65537, 7, 9)]
+FAST_UNALIGNED = (2, 33, 100)
+FAST_EDGE_THRESHOLDS = (0, 20, 256)
 SCAN_KERNELS = ("blur_hist", "otsu", "ccl", "quad_warp")
 SCAN_N, SCAN_PAGE, SCAN_CAP = 8, (1000, 800), 1000
 CCL_SHAPES = [(1, 1, 4096), (1, 4096, 1), (1, 7, 8), (1, 17, 129), (1, 768, 1024),
@@ -186,6 +196,13 @@ RESIZE_CASES = [((1024, 1024), (480, 640)), ((480, 640), (768, 1024)), ((480, 64
                 ((200, 256), (200, 256)), ((816, 612), (100, 40)), ((1, 1), (5, 7)),
                 ((7, 1), (3, 9))]
 RESIZE_N, RESIZE_TO = 256, (480, 640)
+# K14's edges: output widths no multiple of 4 or 16, outputs wider than a
+# block's tile and sources wider than a staged segment, 65,537 frames (past the
+# grid's z); sources and (through the C entry) outputs at byte offsets 1 .. 15
+RESIZE_EDGE_CASES = [((2, 97, 200), (35, w)) for w in (1, 2, 3, 5, 17, 33, 639, 641, 1001)] + [
+    ((1, 4, 16000), (3, 9000)), ((1, 4, 16384), (3, 2000)), ((1, 3, 5000), (2, 20000)),
+    ((65537, 3, 5), (2, 7)), ((65537, 2, 16), (3, 32))]
+RESIZE_UNALIGNED = ((2, 64, 1008), ((30, 630), (40, 1000), (13, 7), (70, 1501)))
 SHARDED_KERNELS = ("blur_hist_window", "otsu", "threshold_sobel_window")
 BANDWIDTH_KERNELS = ("copy", "triad")
 WINDOW_RADII = (1, 2, 6, 16, 40)
@@ -207,11 +224,16 @@ CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
     (["scan"], "document", SCAN_KERNELS), (["keypoints", "50", "20"], "lena", ("fast",)),
     (["orb", "aruco"], "aruco", ORB_KERNELS), (["faces", "2"], "lena", FACES_KERNELS),
 ]
-# the least time of a kernel: bytes over the memory rate or operations over the
-# float32 rate, whichever is larger (NVIDIA's H100 SXM data sheet, 700 W; the
-# integer operations are counted at the same rate)
+# the least time of a kernel: bytes over the memory rate (NVIDIA's H100 SXM data
+# sheet, 700 W) or operations over the issue rate of their kind, whichever is
+# larger.  The issue rates are lanes x SMs x the card's top SM clock
+# (nvidia-smi clocks.max.sm): 128 FP32 lanes an SM, with no FMA (the kernels
+# that round as C does build with -fmad=false), and 64 INT32 lanes.  Rows whose
+# operation count is not restated by kind keep the data sheet's FP32 rate, an
+# FMA counted as two ("datasheet").
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+OP_RATES = {"datasheet": 67e12}  # "fp32" and "int32" are set by set_op_rates()
+FP32_LANES, INT32_LANES = 128, 64
 
 
 def emit(phase, **kv):
@@ -222,19 +244,37 @@ def _wide(t):
     return u32_to_int64(t) if t.dtype == torch.uint32 else t.to(torch.int64)
 
 
+def set_op_rates():
+    """Fill ``OP_RATES["fp32"]`` and ``["int32"]`` from the card's SMs and top SM clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    hz = float(out.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    OP_RATES.update(fp32=FP32_LANES * sms * hz, int32=INT32_LANES * sms * hz)
+    return {"sms": sms, "max_sm_clock_mhz": hz / 1e6, **OP_RATES}
+
+
+def ops_ms(ops):
+    """The least time of ``ops``: a count at the data sheet's rate, or {kind: count},
+    each kind at its own issue rate (the kinds issue side by side)."""
+    kinds = ops if isinstance(ops, dict) else {"datasheet": ops}
+    return max(count / OP_RATES[kind] * 1e3 for kind, count in kinds.items())
+
+
 def kernel_entry(ms, plain_ms, nbytes, ops, library_ms=None, library=None):
     """A kernel's times beside its bound: the larger of ``nbytes`` (each input
-    read once, each output written once) over the memory rate and ``ops`` over
-    the operation rate, in ms."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    read once, each output written once) over the memory rate and ``ops`` (see
+    ``ops_ms``) over the operation rates, in ms."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ms(ops)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms, "library": library, "bytes": nbytes, "operations": ops}
+            "library_ms": library_ms, "library": library, "bytes": nbytes, "operations": ops,
+            "operations_ms": by_ops}
 
 
 def bound_at(entry, bytes_per_s):
     """``entry``'s bound with the memory rate ``bytes_per_s`` in place of the data sheet's."""
-    return max(entry["bytes"] / bytes_per_s * 1e3, entry["operations"] / OPS_PER_S * 1e3)
+    return max(entry["bytes"] / bytes_per_s * 1e3, entry["operations_ms"])
 
 
 class Checker:
@@ -294,6 +334,13 @@ def otsu_cases(rng):
     tie[1, [0, 255, 128]] = [5, 5, 5]
     cases.append(("ties", tie, 15))
     return cases
+
+
+def unaligned(shape, offset, rng, dev):
+    """Random frames of ``shape`` that start ``offset`` bytes into a larger buffer."""
+    size = int(np.prod(shape))
+    flat = torch.from_numpy(rng.integers(0, 256, size + 16, dtype=np.uint8)).to(dev)
+    return flat[offset:offset + size].view(shape)
 
 
 def stencil_frames(rng, dev):
@@ -662,11 +709,14 @@ def phase_faces_timing(batch, card, work):
 
     px = batch.numel()
     # K5 reads the integral once a scale and writes a hit a window; a weak is
-    # about 40 integer operations (16 corner reads, 9 block sums, 8 compares,
-    # the subset test, the float add), counted over the weaks this batch's
-    # windows run (from phase_faces_work) and, beside it, over stage 0 alone
+    # about 40 operations: 38 INT32 (16 corner addresses, 9 block sums, 8
+    # compares, the subset test) and 2 FP32 (the leaf's add, the stage test),
+    # counted over the weaks this batch's windows run (from phase_faces_work)
+    # and, beside it, over stage 0 alone
     stage0 = int(cascade.stage_nweaks[0])
-    stage0_ops = FACES_N * nwin * stage0 * 40
+
+    def weak_ops(weaks):
+        return {"int32": 38 * weaks, "fp32": 2 * weaks}
     times = {
         "integral": kernel_entry(timeit(K.integral, batch) * 1e3,
                                  timeit(K.integral_plain, batch, iters=3) * 1e3,
@@ -675,10 +725,10 @@ def phase_faces_timing(batch, card, work):
         "lbp_eval_scale": kernel_entry(
             timeit(k5, K.lbp_eval_scale) * 1e3,
             timeit(k5, K.lbp_eval_scale_plain, iters=1, warmup=1, repeat=1) * 1e3,
-            len(plan) * 4 * px + FACES_N * nwin, work["weaks_per_batch"] * 40, None,
+            len(plan) * 4 * px + FACES_N * nwin, weak_ops(work["weaks_per_batch"]), None,
             "none: no PyTorch call evaluates an LBP cascade"),
     }
-    times["lbp_eval_scale"]["bound_ms_stage0"] = stage0_ops / OPS_PER_S * 1e3
+    times["lbp_eval_scale"]["bound_ms_stage0"] = ops_ms(weak_ops(FACES_N * nwin * stage0))
     # the same launches with the cascade cut to stage 0: the fixed part and stage 0
     cut = first_stages(cascade, 1)
     times["lbp_eval_scale"]["stage0_only_ms"] = timeit(
@@ -736,6 +786,18 @@ def phase_orb_kernels(chk, rng, dev):
     wide = K.fast(imgs, 0)[1]  # the last shape's dark frame
     if wide.dtype != torch.int64:
         raise AssertionError(f"fast on {FAST_SHAPES[-1]}: keys are {wide.dtype}, not int64")
+    edges = [(shape, frames) for shape in FAST_EDGE_SHAPES for frames in fast_frames(shape, rng)]
+    edges += [((FAST_UNALIGNED, f"offset {off}"), ("random", unaligned(FAST_UNALIGNED, off, rng, dev)))
+              for off in range(1, 16)]
+    edges.append((((1, 2900, 2900), "offset 3"), ("random", unaligned((1, 2900, 2900), 3, rng, dev))))
+    for shape, (name, frames) in edges:
+        imgs = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(frames).to(dev)
+        for thr in FAST_EDGE_THRESHOLDS:
+            got, ref = K.fast(imgs, thr, True), K.fast_plain(imgs, thr, True)
+            chk.same("fast", got[0], ref[0], f"{shape} {name} thr={thr} score")
+            chk.same("fast", got[1], ref[1], f"{shape} {name} thr={thr} key")
+            chk.same("fast", K.fast(imgs, thr)[1], ref[1], f"{shape} {name} thr={thr} key only")
+        torch.cuda.synchronize()
 
     h, w = 64, 200
     imgs = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8)).to(dev)
@@ -766,6 +828,9 @@ def phase_orb_kernels(chk, rng, dev):
     torch.cuda.synchronize()
     emit("orb_kernels_vs_plain", ok=True, fast_shapes=[list(s) for s in FAST_SHAPES],
          thresholds=list(FAST_THRESHOLDS), frames=["random", "lena", "checker", "dark"],
+         fast_edge_shapes=[list(s) for s in FAST_EDGE_SHAPES],
+         fast_unaligned=[list(FAST_UNALIGNED), "offsets 1-15"], fast_wide_unaligned=[1, 2900, 2900],
+         fast_edge_thresholds=list(FAST_EDGE_THRESHOLDS),
          wide_key_keypoints=int((wide != 0).sum()),
          checks={k: chk.checks[k] for k in ORB_KERNELS},
          max_abs_err={k: chk.max_err[k] for k in ORB_KERNELS})
@@ -917,10 +982,12 @@ def phase_orb_timing(frames, card):
     px, nk = batch.numel(), sx.numel()
     dy, dx = np.mgrid[-15:16, -15:16]
     disc = int((dx * dx + dy * dy <= 225).sum())
-    # K6 about 120 integer operations a pixel (PERF.md); K7 2 multiplies and 2
-    # adds a disc pixel; K8 about 12 operations a pair (rotation, rounding, 2
-    # reads, a compare), 256 pairs
-    cost = {"fast": (5 * px, 120 * px, None, "none: no PyTorch call computes FAST"),
+    # K6 25 INT32 operations a pixel, four pixels a 32-bit operation: 16
+    # samples x (2 compares, |v - p|, the minimum) / 4, the run of 9 (56
+    # operations over 8 pixels' packed bits), the NMS maximum and the key; K7 2
+    # multiplies and 2 adds a disc pixel; K8 about 12 operations a pair
+    # (rotation, rounding, 2 reads, a compare), 256 pairs
+    cost = {"fast": (5 * px, {"int32": 25 * px}, None, "none: no PyTorch call computes FAST"),
             "orb_moments": (px + 16 * nk, 4 * disc * nk, None,
                             "none: no one call sums a disc around each keypoint"),
             "orb_brief": (px + 16 * nk + 32 * nk, 12 * 256 * nk, None,
@@ -931,6 +998,10 @@ def phase_orb_timing(frames, card):
                                    *cost[name])
         emit("kernel_time", card=card, kernel=name,
              shape=list(batch.shape) if name == "fast" else [ORB_N, ORB_CAP], **times[name])
+    emit("orb_profile", card=card, entry=f"orb_extract, {ORB_N} x 640x480",
+         **profile_calls(gt.orb_extract, batch, ORB_CAP, ORB_THR))
+    emit("orb_profile", card=card, entry=f"track, aruco, {TRACK_KPS} keypoints",
+         **profile_calls(gt.track, tmpl, scene, TRACK_KPS))
     emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     return times
 
@@ -1131,7 +1202,7 @@ def phase_scan_timing(batch, corners, card):
                    padding_mode="border", align_corners=True) * 1e3
     del src_f, grid
     # K9: a find per neighbour and a flatten, about 10 operations a pixel;
-    # K10: about 60 float operations and 4 reads a page pixel
+    # K10: about 60 FP32 operations (no FMA) and 4 reads a page pixel
     times = {
         "ccl": kernel_entry(timeit(K.ccl, binary) * 1e3,
                             timeit(K.ccl_plain, binary, iters=1, repeat=1) * 1e3,
@@ -1139,7 +1210,7 @@ def phase_scan_timing(batch, corners, card):
         "quad_warp": kernel_entry(
             timeit(K.quad_warp, batch, corners, SCAN_PAGE) * 1e3,
             timeit(K.quad_warp_plain, batch, corners, SCAN_PAGE, iters=3) * 1e3,
-            px + 32 * n + page_px, 60 * page_px, gs_ms,
+            px + 32 * n + page_px, {"fp32": 60 * page_px}, gs_ms,
             "grid_sample(bilinear, align_corners=True) of the float frames at the same "
             "coordinates: not bit-exact"),
     }
@@ -1184,11 +1255,32 @@ def phase_dense_kernels(chk, rng, dev):
     for src, dst in RESIZE_CASES:
         imgs = torch.from_numpy(rng.integers(0, 256, (2, *src), dtype=np.uint8)).to(dev)
         chk.same("resize", K.resize(imgs, dst), K.resize_plain(imgs, dst), f"{src}->{dst}")
+    for src, dst in RESIZE_EDGE_CASES:
+        imgs = torch.from_numpy(rng.integers(0, 256, src, dtype=np.uint8)).to(dev)
+        chk.same("resize", K.resize(imgs, dst), K.resize_plain(imgs, dst), f"{src}->{dst}")
+    src, dsts = RESIZE_UNALIGNED
+    for off in range(1, 16):
+        imgs = unaligned(src, off, rng, dev)
+        for dst in dsts:
+            chk.same("resize", K.resize(imgs, dst), K.resize_plain(imgs, dst),
+                     f"{src} at offset {off} -> {dst}")
+        # the C entry into an output that starts off bytes into a buffer
+        ref = K.resize_plain(imgs, dsts[0])
+        out = torch.zeros(ref.numel() + 16, dtype=torch.uint8, device=dev)
+        _build.check(_build.library().gs_resize(imgs.data_ptr(), out.data_ptr() + off, src[0],
+                                                src[1], src[2], *dsts[0], _build.stream_of(imgs)),
+                     "resize")
+        chk.same("resize", out[off:off + ref.numel()].view(ref.shape), ref,
+                 f"{src} at offset {off} -> {dsts[0]}, output at offset {off}")
+        if out[:off].any() or out[off + ref.numel():].any():
+            raise AssertionError(f"resize wrote outside its output at offset {off}")
     torch.cuda.synchronize()
     dense = ("adaptive", "morph", "filter3", "resize")
     emit("dense_kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES + EDGE_SHAPES],
          unaligned=f"{list(UNALIGNED)}[1:]", radii=list(ADAPTIVE_RADII), offsets=list(ADAPTIVE_CS), taps=sorted(FILTER_TAPS),
          resize_cases=[[list(a), list(b)] for a, b in RESIZE_CASES],
+         resize_edge_cases=[[list(a), list(b)] for a, b in RESIZE_EDGE_CASES],
+         resize_unaligned=[list(RESIZE_UNALIGNED[0]), "offsets 1-15", [list(d) for d in RESIZE_UNALIGNED[1]]],
          checks={k: chk.checks[k] for k in dense}, max_abs_err={k: chk.max_err[k] for k in dense})
 
 
@@ -1310,7 +1402,8 @@ def phase_dense_timing(batch, binary, card):
     del bigf
     # per pixel: K11 4 running-sum adds, a division, a subtraction, a compare, a
     # select; K12 8 compares; K13 9 multiplies, 8 adds, a division, a clamp; K14
-    # about 40 float operations an output pixel (two divisions among them)
+    # 16 FP32 operations an output pixel (4 bytes made floats, 8 multiplies, 3
+    # adds, the truncation; each coordinate once a column or a row)
     times = {
         "adaptive": kernel_entry(
             timeit(K.adaptive, batch, DENSE_R, DENSE_C) * 1e3,
@@ -1327,7 +1420,7 @@ def phase_dense_timing(batch, binary, card):
                      "cuDNN's default TF32"),
         "resize": kernel_entry(
             timeit(K.resize, big, RESIZE_TO) * 1e3, t_resize_ref * 1e3, big_px + out_px,
-            40 * out_px, interp_ms,
+            {"fp32": 16 * out_px}, interp_ms,
             "interpolate(bilinear, align_corners=False) of the float32 frames: not bit-exact"),
     }
     shapes = {"adaptive": batch.shape, "morph": binary.shape, "filter3": big.shape,
@@ -1345,17 +1438,19 @@ def phase_dense_timing(batch, binary, card):
 
 
 def phase_orb_device_time(frames, times, card):
-    """K7's and K8's device time per call from the profiler: their CUDA-event
-    times over back-to-back calls read the host's launch rate."""
+    """K6's, K7's and K8's device time per call from the profiler: their
+    CUDA-event times over back-to-back calls read the host's launch rate."""
     batch = frames[0]
     kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
     sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
     sin, cos = libm32.sinf(kps.angle), libm32.cosf_like_reference(kps.angle)
-    dev = {"orb_moments": device_ms(lambda: K.orb_moments(batch, sx, sy)),
+    dev = {"fast": device_ms(lambda: K.fast(batch, ORB_THR)),
+           "orb_moments": device_ms(lambda: K.orb_moments(batch, sx, sy)),
            "orb_brief": device_ms(lambda: K.orb_brief(batch, sx, sy, sin, cos))}
     for name, ms in dev.items():
         times[name]["device_ms"] = ms
-    emit("orb_kernel_device_time", card=card, shape=[ORB_N, ORB_CAP], device_ms=dev,
+    emit("orb_kernel_device_time", card=card, shape=[ORB_N, ORB_CAP], fast_shape=list(batch.shape),
+         device_ms=dev,
          event_ms={name: times[name]["ms"] for name in dev},
          source="torch.profiler device events over 20 calls after a warm-up call")
 
@@ -1632,11 +1727,12 @@ def main():
         return 1
     dev = torch.device("cuda", 0)
     card = card_line()
+    op_rates = set_op_rates()
     t_start = t0 = time.perf_counter()
     _build.library()
     emit("build", card=card, device=torch.cuda.get_device_name(0), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=time.perf_counter() - t0,
-         nvcc=" ".join(_build.NVCC_FLAGS))
+         nvcc=" ".join(_build.NVCC_FLAGS), operation_rates=op_rates)
 
     chk = Checker()
     phase_kernels(chk, np.random.default_rng(0), dev)

@@ -3,8 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
-    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth}] [--parent DIR ...]
-                          [--only NAME ...]
+    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast}]
+                          [--parent DIR ...] [--only NAME ...]
 
 It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
 that are text edits of it, each into a library of its own under
@@ -55,6 +55,22 @@ K17 ``copy`` and K18 ``triad`` over 256 MiB; ``Tensor.copy_``,
 called into ``o`` without their wrappers are timed in the same turns, and the
 profiler names the library calls' kernels.
 
+``--source resize``: K14's layout (lane l on columns x0 + l + 32 j with byte
+stores, in place of the lane's consecutive columns; also with 1 column a
+thread), its columns a thread for downscales (``kColsDown``: 8, 16) and
+upscales (``kColsUp``: 4, 8), the frames a block (``kFrames``: 8, 16, 64) and
+the grid size below which a block takes fewer (``kMinBlocks``: 0, 512, 8192),
+and staged rows against L1 gathers (``kStagePercent``: 0, 360), on 256 frames
+of lena tiled to 1024x1024 -> 480x640, of lena at 480x640 -> 768x1024 and of
+receipt.pgm (816x612) -> 100x40.
+
+``--source fast``: K6's strip of rows (``kStrip``: 8, 12, 24, 32), its words a
+lane (``kWords``: 1, 4), its block size (``kThreads``: 128, 256), and the
+score's minimum and the NMS's maximum by ``__vminu4`` / ``__vmaxu4`` in place
+of the u16 DPX instructions, on 16 frames of lena at 640x480 (keys; keys and
+the score map) and 16 random frames, at threshold 20.  Its kernels are short,
+so each variant is timed by the profiler's device events too.
+
 Each phase prints one JSON line; the last line is ``{"ok": true, ...}``.
 """
 
@@ -63,6 +79,7 @@ import ctypes
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -70,7 +87,8 @@ import time
 import torch
 
 from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FILTER_TAPS, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
-                        card_line, lena_batch, receipt_batch)
+                        ORB_H, ORB_N, ORB_THR, ORB_W, card_line, device_ms, lena_batch,
+                        receipt_batch)
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.profiling import timeit
@@ -499,6 +517,62 @@ BANDWIDTH_VARIANTS = {
 }
 
 
+# K14 with lane l on output columns x0 + l + 32 j (byte stores) in place of
+# the lane's kCols consecutive columns (4-byte stores): each gather
+# instruction of a warp then reads 32 neighbouring outputs' corners.
+STRIDED_STORE = r"""// The outputs of the strided layout: columns x0 + lane + 32 j, a byte each.
+template <int kCols>
+__device__ __forceinline__ void store_strided(uint8_t* row, int x0, int lane, int dw,
+                                              const unsigned (&v)[kCols]) {
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    if (x0 + lane + 32 * j < dw) row[x0 + lane + 32 * j] = static_cast<uint8_t>(v[j]);
+  }
+}
+
+// Grid: (dw / kTile"""
+
+
+def _resize_strided(s):
+    s = edit(s, "source_coord(min(x + j, dw - 1), sw, dw)",
+             "source_coord(min(x0 + lane + 32 * j, dw - 1), sw, dw)",
+             "\n// Grid: (dw / kTile", "\n" + STRIDED_STORE)
+    return replace_n(s, "store_outputs(out_row + f * out_plane, x, dw, words != 0, v);",
+                     "store_strided(out_row + f * out_plane, x0, lane, dw, v);", 2)
+
+
+RESIZE_VARIANTS = {
+    "committed": lambda s: s,
+    "strided": _resize_strided,
+    "strided_cols1": chain(_resize_strided, const("kColsDown", 1)),
+    **{f"down_cols{c}": const("kColsDown", c) for c in (8, 16)},
+    **{f"up_cols{c}": const("kColsUp", c) for c in (4, 8)},
+    **{f"frames{f}": const("kFrames", f) for f in (8, 16, 64)},
+    **{f"min_blocks{b}": const("kMinBlocks", b) for b in (0, 512, 8192)},
+    "l1_only": const("kStagePercent", 0),
+    "staged_to_3.6x": const("kStagePercent", 360),
+    "strided_l1_only": chain(_resize_strided, const("kStagePercent", 0)),
+}
+
+FAST_VARIANTS = {
+    "committed": lambda s: s,
+    **{f"strip{h}": const("kStrip", h) for h in (8, 12, 24, 32)},
+    **{f"words{k}": const("kWords", k) for k in (1, 4)},
+    **{f"threads{t}": const("kThreads", t) for t in (128, 256)},
+    # the score's minimum and the NMS's maximum by the emulated byte SIMD
+    # (__vminu4, __vmaxu4) in place of the u16 DPX instructions
+    "byte_min_max": lambda s: edit(
+        s, "        min_odd[k] = __vimin3_u16x2(min_odd[k], pend_odd[k], d_odd);",
+        "        min_odd[k] = __vminu4(__vminu4(min_odd[k], pend_odd[k]), d_odd);",
+        "const unsigned mind = __byte_perm(min_even[k], min_odd[k], 0x7351);",
+        "const unsigned mind = min_odd[k];",
+        "  const unsigned odd = __vimax3_u16x2(a, b, c);\n"
+        "  const unsigned even = __vimax3_u16x2(a * 256u, b * 256u, c * 256u);\n"
+        "  return __byte_perm(even, odd, 0x7351);",
+        "  return __vmaxu4(__vmaxu4(a, b), c);"),
+}
+
+
 def preproc_cases(dev):
     lena = torch.from_numpy(lena_batch(MAIN_N, MAIN_H, MAIN_W)).to(dev)
     blurred, hist = K.blur_hist(lena, MAIN_R)
@@ -556,6 +630,34 @@ def bandwidth_cases(dev):
     return cases, library
 
 
+def resize_cases(dev):
+    big = torch.from_numpy(lena_batch(MAIN_N, MAIN_H, MAIN_W)).to(dev)
+    vga = torch.from_numpy(lena_batch(MAIN_N, 480, 640)).to(dev)
+    receipt = torch.from_numpy(receipt_batch(MAIN_N)).to(dev)
+    return {
+        f"resize_{tuple(x.shape)}_to_{to}": (x.shape, lambda x=x, to=to: K.resize(x, to),
+                                             lambda x=x, to=to: K.resize_plain(x, to))
+        for x, to in ((big, (480, 640)), (vga, (768, 1024)), (receipt, (100, 40)))
+    }, {}
+
+
+def fast_cases(dev):
+    lena = torch.from_numpy(lena_batch(ORB_N, ORB_H, ORB_W, roll=5)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise = torch.randint(0, 256, lena.shape, dtype=torch.uint8, device=dev, generator=gen)
+    return {
+        "fast_key": (lena.shape, lambda: K.fast(lena, ORB_THR), lambda: K.fast_plain(lena, ORB_THR)),
+        "fast_key_score": (lena.shape, lambda: K.fast(lena, ORB_THR, True),
+                           lambda: K.fast_plain(lena, ORB_THR, True)),
+        "fast_key_random": (noise.shape, lambda: K.fast(noise, ORB_THR),
+                            lambda: K.fast_plain(noise, ORB_THR)),
+    }, {}
+
+
+# sources whose kernels are short enough that back-to-back calls may time the
+# host: their variants are also timed by the profiler's device events
+DEVICE_TIMED = ("fast",)
+
 SOURCES = {
     "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
                                "gs_threshold_sobel_window", "gs_adaptive"),
@@ -564,6 +666,8 @@ SOURCES = {
                  stencil3_cases, r"morph|filter3|Used"),
     "bandwidth": ("bandwidth.cu", ("gs_copy", "gs_triad"), BANDWIDTH_VARIANTS, {},
                   bandwidth_cases, r"triad|copy|Used"),
+    "resize": ("resize.cu", ("gs_resize",), RESIZE_VARIANTS, {}, resize_cases, r"resize|Used"),
+    "fast": ("fast.cu", ("gs_fast",), FAST_VARIANTS, {}, fast_cases, r"fast|Used"),
 }
 
 
@@ -680,12 +784,15 @@ def main():
 
     order = list(libs)
     times = {name: {kernel: [] for kernel in cases} for name in order}
+    device = {name: {kernel: [] for kernel in cases} for name in order}
     lib_times = {(kernel, label): [] for kernel, fns in library.items() for label in fns}
     for turn in (order, order[::-1]):
         for name in turn:
             _build._lib = libs[name]
             for kernel, (_, fn, _) in cases.items():
                 times[name][kernel].append(timeit(fn) * 1e3)
+                if args.source in DEVICE_TIMED:
+                    device[name][kernel].append(device_ms(fn))
         for kernel, fns in library.items():
             for label, fn in fns.items():
                 lib_times[kernel, label].append(timeit(fn) * 1e3)
@@ -694,8 +801,11 @@ def main():
         ms = {name: times[name][kernel] for name in order}
         for label in library.get(kernel, ()):
             ms[f"library:{label}"] = lib_times[kernel, label]
+        dev_ms = ({"device_ms": {name: device[name][kernel] for name in order},
+                   "mean_device_ms": {name: statistics.fmean(device[name][kernel]) for name in order}}
+                  if args.source in DEVICE_TIMED else {})
         emit("sweep", card=card, source=source, kernel=kernel, shape=list(shape), ms=ms,
-             mean_ms={name: sum(v) / len(v) for name, v in ms.items()},
+             mean_ms={name: sum(v) / len(v) for name, v in ms.items()}, **dev_ms,
              windows="profiling.timeit (median of 3 windows of 20 calls), variants in order "
                      "then in reverse" + (", the library call after each turn" if library else ""))
     if library:  # the library calls' own kernels, by name, from the profiler

@@ -106,8 +106,8 @@ def fast(imgs: torch.Tensor, threshold, want_score: bool = False):
     if not imgs.is_cuda:
         return fast_plain(imgs, threshold, want_score)
     n, h, w = imgs.shape
-    if n > 65535 or h * w >= 2**31:
-        raise ValueError(f"fast: at most 65535 frames of < 2^31 pixels, got {tuple(imgs.shape)}")
+    if h * w >= 2**31:
+        raise ValueError(f"fast: frames of < 2^31 pixels, got {tuple(imgs.shape)}")
     lib = _build.library()
     score = torch.empty((n, h, w), dtype=torch.uint8, device=imgs.device) if want_score else None
     key = torch.empty((n, h, w), dtype=_key_dtype(h, w), device=imgs.device)

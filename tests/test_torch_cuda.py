@@ -371,6 +371,34 @@ def test_fast_wide_keys_on_card(cuda_device):
     assert torch.equal(key, K.fast_plain(imgs, 20)[1])
 
 
+def _unaligned(shape, offset, seed, device):
+    """Frames of ``shape`` that start ``offset`` bytes into a larger buffer."""
+    flat = _frames((int(np.prod(shape)) + 16,), seed, device)
+    return flat[offset:offset + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.cuda
+def test_fast_edges_on_card(cuda_device):
+    """K6 at widths 7 .. 40 and 641 (segments of 240 columns, rows no multiple
+    of 4 or 16), frames under 7 rows, frames at byte offsets 1 .. 15 (the byte
+    path), 65,537 frames and the int64 keys of an unaligned frame; keys alone
+    equal the keys made beside the score map."""
+    cases = [_orb_frames((1, 20, w), 42 + w, cuda_device) for w in range(7, 41)]
+    cases += [_orb_frames((2, 30, 641), 43, cuda_device), _orb_frames((2, 6, 50), 44, cuda_device),
+              _orb_frames((1, 3, 9), 45, cuda_device)]
+    cases += [_unaligned((2, 33, 100), off, 46 + off, cuda_device) for off in range(1, 16)]
+    cases.append(_frames((65537, 7, 9), 48, cuda_device))  # past the old grid's z
+    for imgs in cases:
+        for thr in (0, 20, 256):
+            score, key = K.fast(imgs, thr, want_score=True)
+            ref_score, ref_key = K.fast_plain(imgs, thr, want_score=True)
+            assert torch.equal(score, ref_score) and torch.equal(key, ref_key), (imgs.shape, thr)
+            assert torch.equal(K.fast(imgs, thr)[1], key), (imgs.shape, thr)
+    wide = _unaligned((1, 2900, 2900), 3, 47, cuda_device)
+    key = K.fast(wide, 20)[1]
+    assert key.dtype == torch.int64 and torch.equal(key, K.fast_plain(wide, 20)[1])
+
+
 @pytest.mark.cuda
 def test_orb_moments_and_brief_match_plain_on_card(cuda_device):
     rng = np.random.default_rng(42)
@@ -554,6 +582,37 @@ def test_resize_matches_plain_on_card(cuda_device, src, dst):
     assert got.is_cuda and tuple(got.shape) == (2,) + dst
     assert torch.equal(got, K.resize_plain(imgs, dst))
     assert torch.equal(got.cpu(), K.resize_plain(imgs.cpu(), dst))
+
+
+@pytest.mark.cuda
+def test_resize_edges_on_card(cuda_device):
+    """K14 on sources at byte offsets 1 .. 15 (the L1 path), output widths no
+    multiple of 4 or 16, outputs wider than a block's tile and sources wider
+    than a staged segment, 65,537 frames (past the grid's z) and, through the
+    C entry, destinations at byte offsets 1 .. 15."""
+    from grayskull_tpu_torch.kernels import _build
+
+    for off in range(1, 16):
+        imgs = _unaligned((2, 64, 1008), off, 63 + off, cuda_device)
+        for dst in ((30, 630), (40, 1000), (13, 7), (70, 1501)):
+            assert torch.equal(K.resize(imgs, dst), K.resize_plain(imgs, dst)), (off, dst)
+    for src in ((2, 97, 200), (2, 480, 640)):
+        imgs = _frames(src, 64, cuda_device)
+        for dw in (1, 2, 3, 5, 17, 33, 639, 641, 1001):
+            assert torch.equal(K.resize(imgs, (35, dw)), K.resize_plain(imgs, (35, dw))), (src, dw)
+    for src, dst in (((1, 4, 16000), (3, 9000)), ((1, 4, 16384), (3, 2000)),
+                     ((1, 3, 5000), (2, 20000)), ((65537, 3, 5), (2, 7)),
+                     ((65537, 2, 16), (3, 32))):
+        imgs = _frames(src, 65, cuda_device)
+        assert torch.equal(K.resize(imgs, dst), K.resize_plain(imgs, dst)), (src, dst)
+    lib, imgs = _build.library(), _frames((3, 96, 160), 66, cuda_device)
+    ref = K.resize_plain(imgs, (50, 97)).view(-1)
+    for off in range(1, 16):
+        out = torch.zeros(ref.numel() + 16, dtype=torch.uint8, device=cuda_device)
+        _build.check(lib.gs_resize(imgs.data_ptr(), out.data_ptr() + off, 3, 96, 160, 50, 97,
+                                   _build.stream_of(imgs)), "resize")
+        assert torch.equal(out[off:off + ref.numel()], ref), off
+        assert not out[:off].any() and not out[off + ref.numel():].any(), off
 
 
 @pytest.mark.cuda

@@ -182,6 +182,64 @@ def test_resize_coords_divide_by_a_tensor():
         assert np.array_equal(d.numpy().view(np.int32), np.asarray(jd).view(np.int32))
 
 
+def test_resize_coords_over_a_sweep_of_sizes():
+    """``source_coords`` (what K14 computes in its prologue, a column's once a
+    block and a row's once a warp) equals the JAX host table ``_src_coords_f32``
+    bit for bit over every output size 1 .. 70 and the benchmark's sizes, for
+    source sizes from 1 to 1024, up- and downscales."""
+    from grayskull_tpu.ops.pixel import _src_coords_f32
+
+    pairs = [(d, s) for d in range(1, 71) for s in (1, 2, 3, 7, 40, 97, 612, 816, 1024)]
+    pairs += [(480, 1024), (640, 1024), (768, 480), (1024, 640), (100, 816), (40, 612), (347, 480)]
+    for dst_n, src_n in pairs:
+        i0, i1, d = source_coords(dst_n, src_n)
+        j0, j1, jd = _src_coords_f32(dst_n, src_n)
+        assert np.array_equal(i0.numpy(), j0) and np.array_equal(i1.numpy(), j1), (dst_n, src_n)
+        assert np.array_equal(d.numpy().view(np.int32), np.asarray(jd).view(np.int32)), (dst_n, src_n)
+
+
+def _f32_add_rz(a, b):
+    """float32 a + b rounded toward zero: the exact sum in float64, then down one step if rounding went up."""
+    exact = a.astype(np.float64) + np.float64(b)
+    r = exact.astype(np.float32)
+    up = np.abs(r.astype(np.float64)) > np.abs(exact)
+    return np.where(up, np.nextafter(r, np.float32(0)), r)
+
+
+def test_resize_byte_and_truncation_tricks_replayed():
+    """K14 (``csrc/resize.cu:lerp``) makes a byte a float as the float with
+    bits 0x4B000000 | b less 2^23, and stores the low byte of p + 2^23 rounded
+    toward zero.  Both equal C's conversions: every byte exactly, and for p in
+    [0, 256) (float32 values next to every integer and a million random ones)
+    the truncated ``(uint8_t)(unsigned)p``.  Replayed with them, the kernel's
+    lerp equals the plain version and JAX's exact XLA resize."""
+    b = np.arange(256, dtype=np.uint32)
+    as_float = (b | np.uint32(0x4B000000)).view(np.float32) - np.float32(2**23)
+    np.testing.assert_array_equal(as_float, b.astype(np.float32))
+    ints = np.arange(257, dtype=np.float32)
+    near = np.concatenate([np.nextafter(ints, np.float32(0)), ints, np.nextafter(ints, np.float32(300))])
+    rng = np.random.default_rng(40)
+    p = np.concatenate([near, rng.uniform(0, 256, 10**6).astype(np.float32)])
+    p = p[(p >= 0) & (p < 256)]
+    low = _f32_add_rz(p, 2.0**23).view(np.uint32) & np.uint32(0xFF)
+    np.testing.assert_array_equal(low, p.astype(np.uint32) % 256)
+
+    for (sh, sw), (dh, dw) in (((97, 200), (35, 61)), ((24, 128), (48, 256)), ((7, 1), (3, 9))):
+        imgs = _rand((2, sh, sw), 41)
+        x0, x1, dx = (t.numpy() for t in source_coords(dw, sw))
+        y0, y1, dy = (t.numpy() for t in source_coords(dh, sh))
+        byte_f = lambda c: (c.astype(np.uint32) | np.uint32(0x4B000000)).view(np.float32) - np.float32(2**23)
+        ndx, ndy = np.float32(1) - dx, np.float32(1) - dy
+        c = lambda ys, xs: byte_f(imgs[:, ys][:, :, xs])
+        t1 = (c(y0, x0) * ndx[None, None]) * ndy[None, :, None]
+        t2 = (c(y0, x1) * dx[None, None]) * ndy[None, :, None]
+        t3 = (c(y1, x0) * ndx[None, None]) * dy[None, :, None]
+        t4 = (c(y1, x1) * dx[None, None]) * dy[None, :, None]
+        got = (_f32_add_rz(((t1 + t2) + t3) + t4, 2.0**23).view(np.uint32) & np.uint32(0xFF)).astype(np.uint8)
+        _eq(K.resize(torch.from_numpy(imgs), (dh, dw)), got, f"{(sh, sw)}->{(dh, dw)}")
+        _eq(torch.from_numpy(got), jax_resize(imgs, (dh, dw)), f"{(sh, sw)}->{(dh, dw)} vs JAX")
+
+
 @pytest.mark.parametrize("size", [(7, 150), (1, 1), (64, 96), (200, 13), (33, 290)])
 def test_resize_nn_vs_jax(size):
     for shape in SHAPES:

@@ -32,6 +32,7 @@ from grayskull_tpu.kernels.fast import fast_pallas
 from grayskull_tpu.kernels.patches import extract_patches_batched
 from grayskull_tpu.ops.features import _brief_single, _select_candidates_sort
 from grayskull_tpu_torch import kernels as K
+from grayskull_tpu_torch.kernels.fast import _run9, _threshold
 from grayskull_tpu_torch import libm32
 from grayskull_tpu_torch.core import keypoints_from_arrays
 from grayskull_tpu_torch.ops.features import _select_candidates
@@ -169,6 +170,230 @@ def test_fast_goldens(goldens):
 
 
 # --- patches, moments, rBRIEF ---------------------------------------------------
+
+
+# --- K6's byte-lane arithmetic (csrc/fast.cu), replayed in numpy --------------
+
+_M32 = np.uint64(0xFFFFFFFF)
+_MSB, _LOW7, _ONES = np.uint64(0x80808080), np.uint64(0x7F7F7F7F), np.uint64(0x01010101)
+_CIRCLE = [(0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
+           (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3)]
+
+
+def _bytewise(fn, a, b):
+    out = np.zeros(np.broadcast(a, b).shape, np.uint64)
+    for i in range(4):
+        sh = np.uint64(8 * i)
+        z = fn(((a >> sh) & np.uint64(0xFF)).astype(np.int64), ((b >> sh) & np.uint64(0xFF)).astype(np.int64))
+        out |= z.astype(np.uint64) << sh
+    return out
+
+
+def _gt_msb(a, b, x):
+    """``gt_msb``: bit 7 of each byte is a > b, given x = (a | 0x80) - (b & 0x7f) - 1."""
+    return ((a & ~b) | (~(a ^ b) & x)) & _M32
+
+
+def _byte_perm(x, y, sel):
+    both = (y << np.uint64(32)) | x
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= ((both >> np.uint64(8 * ((sel >> (4 * n)) & 7))) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out
+
+
+def _u16x2(fn, *words):
+    """A DPX ``__vimin3_u16x2`` / ``__vimax3_u16x2``: ``fn`` of each 16-bit half."""
+    out = np.zeros_like(words[0])
+    for sh in (np.uint64(0), np.uint64(16)):
+        out |= fn.reduce([(w >> sh) & np.uint64(0xFFFF) for w in words]) << sh
+    return out
+
+
+def _by_u16(fn, *words):
+    """The bytewise ``fn`` of words by the u16 trick: the high byte of each
+    half of fn over the words (bytes 1, 3) and over them shifted up a byte
+    (bytes 0, 2), put together by ``__byte_perm(even, odd, 0x7351)``."""
+    odd = _u16x2(fn, *words)
+    even = _u16x2(fn, *((w << np.uint64(8)) & _M32 for w in words))
+    return _byte_perm(even, odd, 0x7351)
+
+
+def _centre(p, thr):
+    """score_row's per-word constants for centre words p and threshold thr."""
+    t4 = np.uint64(min(thr, 255) * 0x01010101)
+    wrap_all = _M32 if thr > 255 else np.uint64(0)
+    hi = _bytewise(lambda a, b: np.minimum(a + b, 255), p, t4)
+    lo = _bytewise(lambda a, b: np.maximum(a - b, 0), p, t4)
+    wrap = wrap_all | _gt_msb(t4, p, ((t4 | _MSB) - ((p & _LOW7) + _ONES)) & _M32)
+    return hi, (hi & _LOW7) + _ONES, lo, ((lo | _MSB) + _MSB - _ONES) & _M32, wrap
+
+
+def _bright_dark(v, centre):
+    hi, hi_l1, lo, kd, wrap = centre
+    vh = v | _MSB
+    bright = _gt_msb(v, hi, (vh - hi_l1) & _M32)
+    dark = _gt_msb(lo, v, (kd - vh) & _M32) | (wrap & ~bright & _M32)
+    return bright, dark
+
+
+def _run9_tree(m):
+    """The AND-tree of ``csrc/fast.cu:run9`` over 16 words, bitwise."""
+    a2 = [m[k] & m[(k + 1) % 16] for k in range(16)]
+    a4 = [a2[k] & a2[(k + 2) % 16] for k in range(16)]
+    run = np.zeros_like(m[0])
+    for k in range(16):
+        run |= a4[k] & a4[(k + 4) % 16] & m[(k + 8) % 16]
+    return run
+
+
+def test_fast_run9_tree_over_every_mask():
+    """The AND-tree equals ``kernels/fast.py:_run9`` (the shift-and fold) and
+    the definition, 9 consecutive set bits of 16 read circularly, on all
+    65,536 masks; packed with other masks and garbage bits, as the kernel
+    packs a lane's words, each mask's bit still reads its own run."""
+    masks = np.arange(1 << 16, dtype=np.int64)
+    bits = [(masks >> k) & 1 for k in range(16)]
+    direct = np.zeros(masks.shape, bool)
+    for start in range(16):
+        run = np.ones(masks.shape, bool)
+        for j in range(9):
+            run &= bits[(start + j) % 16] == 1
+        direct |= run
+    fold = _run9(torch.from_numpy(masks)).numpy()
+    np.testing.assert_array_equal(fold, direct)
+    np.testing.assert_array_equal(_run9_tree([b.astype(np.uint64) for b in bits]) == 1, direct)
+    # 16 masks a word: 4 positions in each of 4 bytes (bits 7, 6, 5, 4), the
+    # other 16 bits random garbage in every sample's word
+    rng = np.random.default_rng(70)
+    perm = rng.permutation(masks)
+    words = []
+    for k in range(16):
+        word = rng.integers(0, 1 << 32, masks.size // 16, dtype=np.uint64)
+        for slot in range(16):
+            pos = np.uint64(8 * (slot // 4) + 7 - slot % 4)
+            word = (word & ~(np.uint64(1) << pos)) | ((((perm[slot::16] >> k) & 1).astype(np.uint64)) << pos)
+        words.append(word)
+    run = _run9_tree(words)
+    for slot in range(16):
+        pos = np.uint64(8 * (slot // 4) + 7 - slot % 4)
+        np.testing.assert_array_equal((run >> pos) & np.uint64(1) == 1, direct[perm[slot::16]])
+
+
+@pytest.mark.parametrize("thr", [0, 1, 20, 254, 255, 256, 1000, 2**31 - 1])
+def test_fast_byte_lane_compares_over_every_pair(thr):
+    """K6's bright and dark bytes (bit 7 of each byte, four pixels a word) and
+    the u16 trick's minimum, over all 256 x 256 (p, v) pairs: bright is uint32
+    v > p + thr, dark is not bright and v < p - thr mod 2^32 (C's wrap), as
+    ``kernels/fast.py:fast_plain`` and the JAX kernel compute them."""
+    p64, v64 = (a.ravel() for a in np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
+    bright_ref = v64 > p64 + thr
+    dark_ref = ~bright_ref & (v64 < (p64 - thr) % (1 << 32))
+    pw, vw = (np.bitwise_or.reduce(a.reshape(-1, 4).astype(np.uint64) << np.arange(0, 32, 8, dtype=np.uint64),
+                                   axis=1) for a in (p64, v64))
+    bright, dark = _bright_dark(vw, _centre(pw, thr))
+    msb = lambda m: ((m[:, None] >> np.arange(7, 32, 8, dtype=np.uint64)) & np.uint64(1)).ravel() == 1
+    np.testing.assert_array_equal(msb(bright), bright_ref)
+    np.testing.assert_array_equal(msb(dark), dark_ref)
+    # the plain version's own compares agree (its dark is the JAX kernel's `~br & ((d < 0) | (v < d))`)
+    t = torch.from_numpy
+    hi, lo = t(p64) + _threshold(thr), (t(p64) - _threshold(thr)) % (1 << 32)
+    np.testing.assert_array_equal((t(v64) > hi).numpy(), bright_ref)
+    np.testing.assert_array_equal((~(t(v64) > hi) & (t(v64) < lo)).numpy(), dark_ref)
+    if thr == 20:  # the minimum and maximum of 16 samples' bytes by the u16 trick
+        rng = np.random.default_rng(71)
+        d = rng.integers(0, 1 << 32, (16, 4096), dtype=np.uint64)
+        d[:, :256] &= np.uint64(0x0101FF00)  # ties, zeros and 255s
+        want_min = _bytewise(np.minimum, d[0], d[0])
+        want_max = want_min.copy()
+        for row in d[1:]:
+            want_min = _bytewise(np.minimum, want_min, row)
+            want_max = _bytewise(np.maximum, want_max, row)
+        np.testing.assert_array_equal(_by_u16(np.minimum, *d), want_min)
+        np.testing.assert_array_equal(_by_u16(np.maximum, *d), want_max)
+
+
+def _fast_replay(frames, thr):
+    """``csrc/fast.cu`` in numpy on whole rows of words: each sample's word by
+    ``__byte_perm`` of neighbouring words, the byte-lane compares, two words'
+    bright and dark bits packed by bit-selects into one word a sample (garbage
+    elsewhere), the AND-tree, the u16-trick minimum and NMS maximum, the keep
+    bits and the packed keys.  Returns (score, key) as the plain version does."""
+    n, h, w = frames.shape
+    wp = -(-(w + 8) // 8) * 8  # 4 zero columns left, then whole pairs of words
+    pad = np.zeros((n, h + 6, wp), np.uint8)
+    pad[:, 3:h + 3, 4:w + 4] = frames
+    words = pad.view(np.uint32).astype(np.uint64)  # words[..., i] holds columns 4i - 4 .. 4i - 1
+    nw = words.shape[-1]
+    col = np.arange(4 * nw).reshape(nw, 4) - 4
+    colmask = np.bitwise_or.reduce(np.where((col >= 3) & (col < w - 3), 0xFF, 0).astype(np.uint64)
+                                   << np.arange(0, 32, 8, dtype=np.uint64), axis=1)
+
+    def sample(rows, dx):  # rows: (..., nw) words; the word of each word's pixels dx columns right
+        prev = np.concatenate([np.zeros_like(rows[..., :1]), rows[..., :-1]], -1)
+        nxt = np.concatenate([rows[..., 1:], np.zeros_like(rows[..., :1])], -1)
+        if dx == 0:
+            return rows
+        return (_byte_perm(prev, rows, 0x3210 + (4 + dx) * 0x1111) if dx < 0
+                else _byte_perm(rows, nxt, 0x3210 + dx * 0x1111))
+
+    centre = words[:, 3:h + 3]
+    cst = _centre(centre, thr)
+    packed, dmin = [], []
+    for dx, dy in _CIRCLE:
+        v = sample(words[:, 3 + dy:h + 3 + dy], dx)
+        bright, dark = _bright_dark(v, cst)
+        acc = np.zeros(v.shape[:-1] + (nw // 2,), np.uint64)
+        for k in range(2):  # a lane's two words into one
+            for m, sh in ((bright[..., k::2], 2 * k), (dark[..., k::2], 2 * k + 1)):
+                pos = _MSB >> np.uint64(sh)
+                acc = (acc & ~pos & _M32) | ((m >> np.uint64(sh)) & pos)
+        packed.append(acc)
+        dmin.append(_bytewise(lambda a, b: np.abs(a - b), v, centre))
+    run = _run9_tree(packed)
+    corner = np.zeros_like(centre)
+    for k in range(2):
+        c = (((run << np.uint64(2 * k)) | (run << np.uint64(2 * k + 1))) & _MSB)
+        corner[..., k::2] = _bytewise(lambda a, b: np.where(a >= 128, 255, 0), c, c)
+    rows = np.arange(h)[None, :, None]
+    score = _by_u16(np.minimum, *dmin) & corner & colmask & np.where((rows >= 3) & (rows < h - 3), _M32, 0)
+
+    zero = np.zeros_like(score[:, :1])
+    up = np.concatenate([zero, score[:, :-1]], 1)
+    down = np.concatenate([score[:, 1:], zero], 1)
+    ud = _by_u16(np.maximum, up, down, down)
+    c3 = _by_u16(np.maximum, up, score, down)
+    nb = _by_u16(np.maximum, sample(c3, -1), sample(c3, 1), ud)
+    greater = _gt_msb(nb, score, ((nb | _MSB) - ((score & _LOW7) + _ONES)) & _M32)
+    keep = (((score & _LOW7) + _LOW7) | score) & ~greater & _MSB
+    s8 = score.astype(np.uint32).view(np.uint8).reshape(n, h, -1)[..., 4:w + 4]
+    k8 = keep.astype(np.uint32).view(np.uint8).reshape(n, h, -1)[..., 4:w + 4] >= 128
+    inv = h * w - np.arange(h * w, dtype=np.int64).reshape(h, w)
+    return s8, np.where(k8, (inv << 8) | s8, 0)
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 37), (1, 9, 7), (1, 6, 40), (1, 40, 64)])
+def test_fast_word_replay_vs_plain_and_jax(aruco, shape):
+    """The whole of K6's word-level arithmetic, replayed, equals the plain
+    version on random, checkerboard, two-level and dark frames at thresholds
+    0 .. 2^31 - 1, and the JAX kernel (interpret mode) on aruco and random frames."""
+    n, h, w = shape
+    rng = np.random.default_rng(72)
+    checker = np.broadcast_to((np.indices((h, w)).sum(0) % 2 * 255).astype(np.uint8), shape)
+    cases = [rng.integers(0, 256, shape, dtype=np.uint8), checker,
+             (rng.integers(0, 2, shape) * 255).astype(np.uint8), rng.integers(0, 4, shape, dtype=np.uint8)]
+    for frames, thr in [(f, t) for f in cases for t in (0, 20, 255, 256, 2**31 - 1)]:
+        frames = np.ascontiguousarray(frames)
+        score, key = _fast_replay(frames, thr)
+        s_ref, k_ref = K.fast(torch.from_numpy(frames.copy()), thr, want_score=True)
+        np.testing.assert_array_equal(score, s_ref.numpy(), err_msg=f"thr {thr} score")
+        np.testing.assert_array_equal(key, k_ref.numpy(), err_msg=f"thr {thr} key")
+    if h >= 24:
+        for imgs in (np.ascontiguousarray(aruco[None, 100:100 + h, 150:150 + w]), cases[0]):
+            score, key = _fast_replay(imgs, 20)
+            s_ref, k_ref = fast_pallas(jnp.asarray(imgs), 20, interpret=True)
+            np.testing.assert_array_equal(score, np.asarray(s_ref))
+            np.testing.assert_array_equal(key, np.asarray(k_ref))
 
 
 def _edge_points(h, w, rng, k_random):
