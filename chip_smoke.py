@@ -206,11 +206,12 @@ RESIZE_UNALIGNED = ((2, 64, 1008), ((30, 630), (40, 1000), (13, 7), (70, 1501)))
 SHARDED_KERNELS = ("blur_hist_window", "otsu", "threshold_sobel_window")
 BANDWIDTH_KERNELS = ("copy", "triad")
 WINDOW_RADII = (1, 2, 6, 16, 40)
-# bytes: tails past whole 16-byte words (one K18 thread's vector), one
-# 256-thread block's 4096, and the 64, 2048 and 16384 of chip_sweep.py's
-# chunked K18 variants, each side
-BANDWIDTH_SIZES = (1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 16383, 16384,
-                   16385, 2**20 + 3, 2**28)
+# bytes: tails past whole 16-byte words (one thread's vector), one 256-thread
+# block's 4096 (K17's and K18's span a block; 12295 is three and a 7-byte
+# tail), and the 64, 2048 and 16384 of chip_sweep.py's chunked K18 variants,
+# each side
+BANDWIDTH_SIZES = (1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 12295, 16383,
+                   16384, 16385, 2**20 + 3, 2**28)
 BANDWIDTH_OFFSETS = (0, 1, 4, 8)  # bytes the operands start past a 16-byte boundary
 BANDWIDTH_WINDOWS = 9  # alternating windows of K17 against copy_ and K18 against torch.add
 SPACE = 4  # shards a frame's rows split into on the main sharded mesh
@@ -231,9 +232,13 @@ CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
 # that round as C does build with -fmad=false), and 64 INT32 lanes.  Rows whose
 # operation count is not restated by kind keep the data sheet's FP32 rate, an
 # FMA counted as two ("datasheet").
+# K3's serial chain is a latency, not a rate: "fadd_chain" counts dependent
+# __fadd_rn, each FADD_LATENCY_CYCLES at the top clock (chip_sweep.py --source
+# otsu measures the latency: its fadd_latency line).
 HBM_BYTES_PER_S = 3.35e12
-OP_RATES = {"datasheet": 67e12}  # "fp32" and "int32" are set by set_op_rates()
+OP_RATES = {"datasheet": 67e12}  # "fp32", "int32", "fadd_chain" are set by set_op_rates()
 FP32_LANES, INT32_LANES = 128, 64
+FADD_LATENCY_CYCLES = 4  # chip_sweep.py --source otsu: 4.0048828125 on the H100
 
 
 def emit(phase, **kv):
@@ -250,7 +255,8 @@ def set_op_rates():
                          capture_output=True, text=True, timeout=60, check=True).stdout
     hz = float(out.strip().splitlines()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    OP_RATES.update(fp32=FP32_LANES * sms * hz, int32=INT32_LANES * sms * hz)
+    OP_RATES.update(fp32=FP32_LANES * sms * hz, int32=INT32_LANES * sms * hz,
+                    fadd_chain=hz / FADD_LATENCY_CYCLES)
     return {"sms": sms, "max_sm_clock_mhz": hz / 1e6, **OP_RATES}
 
 
@@ -333,7 +339,25 @@ def otsu_cases(rng):
     tie[0, [10, 20, 30]] = 5  # symmetric: tied variances, first max wins
     tie[1, [0, 255, 128]] = [5, 5, 5]
     cases.append(("ties", tie, 15))
+    cases.append(("total_mismatch", cases[0][1][:64], total - 1))  # counts do not sum to total
+    for t in (1000, 9, 0):
+        cases.append((f"wrap_total_{t}", wrap_histograms(), t))
+    cases.append(("all_zero", np.zeros((2, 256), np.int32), 0))
+    for n in (1, 8, 33, 65537):  # part of a block, whole blocks and a part, many blocks
+        cases.append((f"frames_{n}", np.resize(cases[0][1], (n, 256)), total))
     return cases
+
+
+def wrap_histograms():
+    """Counts whose running weight wraps past 2^32: the bin where it reaches 0
+    is skipped though its term is not 0, and the sweep goes on after it."""
+    hists = np.zeros((4, 256), np.int64)
+    big = 2**31 - 1
+    hists[0, [0, 1, 2]] = [big, big, 2]
+    hists[1, [0, 1, 2, 100]] = [big, big, 2, 5]
+    hists[2, [5, 9, 30, 31, 200]] = [big, big, 1, 1, 7]
+    hists[3, [10, 11, 12, 13]] = [big, big, 2, 9]
+    return hists.astype(np.int32)
 
 
 def unaligned(shape, offset, rng, dev):
@@ -375,6 +399,10 @@ def phase_kernels(chk, rng, dev):
     for name, hists, total in otsu_cases(rng):
         h = torch.from_numpy(hists).to(dev)
         chk.same("otsu", K.otsu(h, total), K.otsu_plain(h, total), name)
+        flat = torch.zeros(h.numel() + 1, dtype=torch.int32, device=dev)
+        off = flat[1:].view(h.shape)  # rows 4 bytes past a 16-byte boundary: the 4-byte loads
+        off.copy_(h)
+        chk.same("otsu", K.otsu(off, total), K.otsu_plain(off, total), f"{name} 4 bytes off")
     torch.cuda.synchronize()
     emit("kernels_vs_plain", ok=True, shapes=[list(s) for s in SHAPES + EDGE_SHAPES],
          unaligned=f"{list(UNALIGNED)}[1:]", radii=list(RADII), checks=chk.checks,
@@ -454,11 +482,13 @@ def phase_timing(batch, card):
                      count_include_pad=False) * 1e3
     del xf
     # per pixel: K1 4 + 4 running-sum adds, a division, a histogram add; K2 a
-    # compare, 11 stencil adds, 2 abs, a shift, a min; K3 about 14 float ops a bin
+    # compare, 11 stencil adds, 2 abs, a shift, a min; K3 about 14 float ops a
+    # bin, and a frame's 256 dependent adds of C's order
     cost = {"blur_hist": (2 * px + n * 1024, 10 * px,
                           pool_ms, "avg_pool2d(count_include_pad=False) of the float frames: "
                                    "float mean, no truncation, no histogram"),
-            "otsu": (n * 1024 + n, n * 256 * 14, None, "none: no PyTorch call computes Otsu"),
+            "otsu": (n * 1024 + n, {"fp32": n * 256 * 14, "fadd_chain": 256}, None,
+                     "none: no PyTorch call computes Otsu"),
             "threshold_sobel": (3 * px + n, 16 * px, None,
                                 "none: no one call gives (|gx|+|gy|)/2 of the binarized frame")}
     times = {}
@@ -466,6 +496,14 @@ def phase_timing(batch, card):
         times[name] = kernel_entry(timeit(kernel) * 1e3, timeit(plain, iters=3) * 1e3,
                                    *cost[name])
         emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), **times[name])
+    # K3 is a few microseconds: back-to-back calls can time the host
+    one = hist[:1].contiguous()
+    k3 = {"device_ms": device_ms(lambda: K.otsu(hist, h * w)),
+          "one_frame_device_ms": device_ms(lambda: K.otsu(one, h * w)),
+          "one_frame_ms": timeit(K.otsu, one, h * w) * 1e3}
+    times["otsu"].update(k3)
+    emit("otsu_device_time", card=card, frames=n, event_ms=times["otsu"]["ms"], **k3,
+         source="torch.profiler device events over 20 calls after a warm-up call")
     # the standalone ops (blur, sobel) take the same kernels without the histogram or thresholds
     for name, kernel, plain, ops in (
             ("blur_hist without histogram", lambda: K.blur_hist(batch, MAIN_R, False),

@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
-    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast}]
+    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu}]
                           [--parent DIR ...] [--only NAME ...]
 
 It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
@@ -43,17 +43,36 @@ others take the multiply-add path), on
 * K12 ``morph``: config #2's binary frames (``adaptive`` of 256 receipt
   frames, 816x612), dilate and erode.
 
-``--source bandwidth``: K18's kernel swapped for one that moves several
-vectors a thread (1, 2, 4, 8) with every load issued before the first store,
-in blocks of 256 or 128 threads, vectors of 16, 8 or 4 bytes, streaming hints
-(``__ldcs``/``__stcs``) on the loads, the stores, both or neither; the
+``--source bandwidth``: K17's aligned path swapped for one that moves 1, 2,
+4 or 8 16-byte vectors a thread in blocks of 128 to 1024 threads, every load
+issued before the first store (also with 32-bit indices); with streaming
+hints (``__ldcs``/``__stcs``)
+or ``ld.global.nc.L1::no_allocate`` loads (also asking L2 for 256 bytes); a
+persistent grid of 1 or 2 blocks an SM, each block one contiguous span; and
+rings of 2 to 4 shared-memory stages of 16 to 64 KiB in one-warp blocks, one
+thread filling each stage with a bulk copy (``cp.async.bulk``, ``mbarrier``
+completion) and draining it with another (bulk-group commit), the bytes past
+the last 16 moved by the last block.  K18's kernel swapped for one that
+moves several vectors a thread (1, 2, 4, 8) with every load issued before
+the first store, in blocks of 256 or 128 threads, vectors of 16, 8 or 4
+bytes, streaming hints on the loads, the stores, both or neither; the
 committed kernel without ``__restrict__``; and a ring of shared-memory
-stages filled by bulk copies (``cp.async.bulk`` with ``mbarrier``
-completion, two persistent blocks an SM, the sum stored by bulk copies), on
-K17 ``copy`` and K18 ``triad`` over 256 MiB; ``Tensor.copy_``,
-``torch.add(x, y, out=o)``, ``torch.add(x, y)`` and the committed entries
-called into ``o`` without their wrappers are timed in the same turns, and the
-profiler names the library calls' kernels.
+stages filled by bulk copies (two persistent blocks an SM, the sum stored by
+bulk copies).  On K17 ``copy`` over 256 MiB and over 64 MiB + 197,527 bytes
+(a part chunk and a tail) and K18 ``triad`` over 256 MiB;
+``Tensor.copy_``, ``torch.add(x, y, out=o)``, ``torch.add(x, y)`` and the
+committed entries called into ``o`` without their wrappers are timed in the
+same turns, every variant also by the profiler's device time, and every
+variant's ``copy`` against ``copy_`` in ``chip_smoke.alternate_windows``
+(variants in order, then in reverse); the profiler names what each library
+call runs on the device and its device time.
+
+``--source otsu``: K3's lanes a frame (``kLanes``: 8, 16, 32) and frames a
+block (``kFrames``), on the histograms K1 makes of the 256 lena frames of
+1024x1024 (r = 2) and of scan's 8 frames and one frame of document.pgm (r =
+1), timed by events and by the profiler's device time; and a probe of the
+card's FADD latency (cycles of a chain of dependent ``__fadd_rn``), the
+latency behind K3's bound.
 
 ``--source resize``: K14's layout (lane l on columns x0 + l + 32 j with byte
 stores, in place of the lane's consecutive columns; also with 1 column a
@@ -87,8 +106,8 @@ import time
 import torch
 
 from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FILTER_TAPS, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
-                        ORB_H, ORB_N, ORB_THR, ORB_W, card_line, device_ms, lena_batch,
-                        receipt_batch)
+                        ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_N, alternate_windows, card_line,
+                        device_ms, document_batch, lena_batch, receipt_batch)
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.profiling import timeit
@@ -485,6 +504,230 @@ def chunked_triad(threads=256, vectors=1, vec_bytes=16, stream_loads=True, strea
     return make
 
 
+# K17's aligned path with @VECTORS@ vectors a thread in blocks of @THREADS@,
+# every load issued before the first store, indices of type @INDEX@;
+# load_vec / store_vec carry the access hints.  Each K17 text below replaces the committed kernel (from "//
+# K17's aligned path." up to "// K17's byte path") and its launch in gs_copy.
+COPY_VECTORS = r"""// K17's aligned path.
+constexpr int kCopyThreads = @THREADS@;
+constexpr int kCopyVectors = @VECTORS@;
+
+__device__ __forceinline__ uint4 load_vec(const uint4* p) {
+@LOAD@
+}
+
+__device__ __forceinline__ void store_vec(uint4* p, uint4 v) {
+@STORE@
+}
+
+__global__ void __launch_bounds__(kCopyThreads)
+    copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, size_t n,
+                size_t n_vec) {
+  const auto s = reinterpret_cast<const uint4*>(src);
+  const auto d = reinterpret_cast<uint4*>(dst);
+  using Index = @INDEX@;
+  const Index i0 = static_cast<Index>(blockIdx.x) * (kCopyThreads * kCopyVectors) + threadIdx.x;
+  uint4 v[kCopyVectors];
+#pragma unroll
+  for (int j = 0; j < kCopyVectors; ++j) {
+    const Index i = i0 + static_cast<Index>(j) * kCopyThreads;
+    if (i < n_vec) v[j] = load_vec(s + i);
+  }
+#pragma unroll
+  for (int j = 0; j < kCopyVectors; ++j) {
+    const Index i = i0 + static_cast<Index>(j) * kCopyThreads;
+    if (i < n_vec) store_vec(d + i, v[j]);
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const size_t k = n_vec * 16 + threadIdx.x;
+    if (k < n) dst[k] = src[k];
+  }
+}
+
+bool copy_blocks(size_t n_vec, unsigned* blocks) {
+  const size_t per_block = static_cast<size_t>(kCopyThreads) * kCopyVectors;
+  const size_t want = std::max<size_t>((n_vec + per_block - 1) / per_block, 1);
+  if (want > 0x7fffffffULL) return false;
+  *blocks = static_cast<unsigned>(want);
+  return true;
+}
+
+"""
+COPY_LOADS = {
+    "plain": "  return *p;",
+    "cs": "  return __ldcs(p);",
+    # the read-only path, no L1 line allocated; the second also asks L2 to fetch 256 bytes
+    **{name: "  uint4 v;\n#if defined(__CUDA_ARCH__)\n  asm volatile(\"ld.global.nc.L1::no_allocate"
+                 + hint + ".v4.u32 {%0, %1, %2, %3}, [%4];\"\n"
+                 "               : \"=r\"(v.x), \"=r\"(v.y), \"=r\"(v.z), \"=r\"(v.w) : \"l\"(p));\n"
+                 "#else\n  v = *p;\n#endif\n  return v;"
+       for name, hint in (("no_allocate", ""), ("no_allocate_l2_256", ".L2::256B"))},
+}
+COPY_STORES = {"plain": "  *p = v;", "cs": "  __stcs(p, v);"}
+
+# K17's aligned path as a persistent grid of @BLOCKS@ blocks an SM, each
+# moving one contiguous span of vectors, @VECTORS@ a thread a step.
+COPY_PERSISTENT = r"""// K17's aligned path.
+constexpr int kCopyThreads = @THREADS@;
+constexpr int kCopyVectors = @VECTORS@;
+constexpr int kCopyBlocksPerSm = @BLOCKS@;
+
+__global__ void __launch_bounds__(kCopyThreads)
+    copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, size_t n,
+                size_t n_vec) {
+  const auto s = reinterpret_cast<const uint4*>(src);
+  const auto d = reinterpret_cast<uint4*>(dst);
+  constexpr size_t step = static_cast<size_t>(kCopyThreads) * kCopyVectors;
+  const size_t span = ((n_vec + gridDim.x - 1) / gridDim.x + step - 1) / step * step;
+  const size_t lo = static_cast<size_t>(blockIdx.x) * span;
+  const size_t hi = lo + span < n_vec ? lo + span : n_vec;
+  for (size_t base = lo + threadIdx.x; base < hi; base += step) {
+    uint4 v[kCopyVectors];
+#pragma unroll
+    for (int j = 0; j < kCopyVectors; ++j) {
+      const size_t i = base + static_cast<size_t>(j) * kCopyThreads;
+      if (i < hi) v[j] = s[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kCopyVectors; ++j) {
+      const size_t i = base + static_cast<size_t>(j) * kCopyThreads;
+      if (i < hi) d[i] = v[j];
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const size_t k = n_vec * 16 + threadIdx.x;
+    if (k < n) dst[k] = src[k];
+  }
+}
+
+bool copy_blocks(size_t n_vec, unsigned* blocks) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t per_block = static_cast<size_t>(kCopyThreads) * kCopyVectors;
+  const size_t want = std::max<size_t>((n_vec + per_block - 1) / per_block, 1);
+  *blocks = static_cast<unsigned>(std::min<size_t>(want, static_cast<size_t>(kCopyBlocksPerSm) * sms));
+  return true;
+}
+
+"""
+
+# K17's aligned path as a ring of @STAGES@ shared-memory stages of @KIB@ KiB
+# in @BLOCKS@ one-warp blocks an SM: one thread fills a stage with a bulk copy
+# (cp.async.bulk, completion on the stage's mbarrier) and drains it with
+# another (bulk-group commit); the data never enters registers.  Block b takes
+# chunks b, b + grid, ...; a stage is refilled one chunk later, once its store
+# has read it.
+COPY_RING = r"""// K17's aligned path.
+constexpr int kCopyThreads = 32;
+constexpr int kRingStages = @STAGES@;
+constexpr unsigned kRingBytes = @KIB@u * 1024u;
+constexpr int kRingBlocksPerSm = @BLOCKS@;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ring_load(uint8_t* stage, unsigned long long* bar,
+                                          const uint8_t* from, unsigned len) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(len) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(stage)), "l"(from), "r"(len), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void ring_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned spins = 0; !done; ++spins) {
+    if (spins > (1u << 26)) asm volatile("trap;");  // a lost completion faults, not hangs
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+__global__ void __launch_bounds__(kCopyThreads)
+    copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, size_t n,
+                size_t n_vec) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ __align__(8) unsigned long long full[kRingStages];
+  const size_t bytes = n_vec * 16;
+  const size_t chunks = (bytes + kRingBytes - 1) / kRingBytes;
+  if (threadIdx.x == 0) {
+    auto len_of = [&](size_t c) {
+      const size_t left = bytes - c * kRingBytes;
+      return static_cast<unsigned>(left < kRingBytes ? left : kRingBytes);
+    };
+    for (int s = 0; s < kRingStages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&full[s])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < kRingStages; ++s) {
+      const size_t c = blockIdx.x + static_cast<size_t>(s) * gridDim.x;
+      if (c < chunks) ring_load(ring + s * kRingBytes, &full[s], src + c * kRingBytes, len_of(c));
+    }
+    int i = 0;
+    for (size_t c = blockIdx.x; c < chunks; c += gridDim.x, ++i) {
+      const int s = i % kRingStages;
+      ring_wait(&full[s], (i / kRingStages) & 1);
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                       dst + c * kRingBytes), "r"(smem_u32(ring + s * kRingBytes)), "r"(len_of(c))
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      const size_t next = c + static_cast<size_t>(kRingStages - 1) * gridDim.x;
+      if (i > 0 && next < chunks) {  // the previous chunk's stage, once its store has read it
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+        const int p = (i - 1) % kRingStages;
+        ring_load(ring + p * kRingBytes, &full[p], src + next * kRingBytes, len_of(next));
+      }
+    }
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const size_t k = bytes + threadIdx.x;
+    if (k < n) dst[k] = src[k];
+  }
+}
+
+bool copy_blocks(size_t n_vec, unsigned* blocks) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kRingStages * kRingBytes);
+  const size_t chunks = (n_vec * 16 + kRingBytes - 1) / kRingBytes;
+  const size_t cap = static_cast<size_t>(kRingBlocksPerSm) * sms;
+  *blocks = static_cast<unsigned>(std::max<size_t>(std::min(chunks, cap), 1));
+  return true;
+}
+
+"""
+RING_LAUNCH = "copy_kernel<<<blocks, kCopyThreads, kRingStages * kRingBytes, st>>>("
+
+
+def fill(template, **values):
+    for key, value in values.items():
+        template = template.replace(f"@{key.upper()}@", str(value))
+    return template
+
+
+def k17(kernel_text, launch=None):
+    """The edit that swaps K17's aligned-path kernel (and, given, its launch) for these."""
+    def make(s):
+        s = replace_span(s, "// K17's aligned path.", "// K17's byte path", kernel_text)
+        if launch:
+            s = edit(s, "copy_kernel<<<blocks, kCopyThreads, 0, st>>>(", launch)
+        return s
+    return make
+
+
+def copy_vectors(threads=256, vectors=4, load="plain", store="plain", index="size_t"):
+    """K17 as COPY_VECTORS; ``index="unsigned"`` holds only below 2^32 vectors."""
+    return k17(fill(COPY_VECTORS, threads=threads, vectors=vectors, load=COPY_LOADS[load],
+                    store=COPY_STORES[store], index=index))
+
+
 BANDWIDTH_VARIANTS = {
     "committed": lambda s: s,
     **{f"vectors{v}": chunked_triad(vectors=v) for v in (1, 2, 4, 8)},
@@ -514,6 +757,20 @@ BANDWIDTH_VARIANTS = {
         s, "\nbool aligned16(", BULK_RING,
         "  const size_t n_vec = aligned16(a) && aligned16(b) && aligned16(out) ? n / 16 : 0;\n",
         BULK_RING_LAUNCH),
+    # K17: vectors a thread and block size; access hints; persistent spans; bulk-copy rings
+    # (copy_vectors1_threads256 is the committed K17's twin: a check on the spread)
+    **{f"copy_vectors{v}_threads{t}": copy_vectors(threads=t, vectors=v)
+       for t in (128, 256, 512, 1024) for v in (1, 2, 4, 8)},
+    **{f"copy_vectors{v}_threads256_u32": copy_vectors(vectors=v, index="unsigned") for v in (1, 2)},
+    **{f"copy_vectors4_{load}_{store}": copy_vectors(load=load, store=store)
+       for load, store in (("cs", "cs"), ("cs", "plain"), ("plain", "cs"), ("no_allocate", "plain"),
+                           ("no_allocate_l2_256", "plain"), ("no_allocate_l2_256", "cs"))},
+    **{f"copy_persistent{b}_vectors{v}": k17(fill(COPY_PERSISTENT, threads=256, vectors=v, blocks=b))
+       for b in (1, 2) for v in (4, 8)},
+    **{f"copy_ring{st}x{kib}k_blocks{b}": k17(fill(COPY_RING, stages=st, kib=kib, blocks=b),
+                                              RING_LAUNCH)
+       for st, kib, b in ((2, 16, 4), (4, 16, 2), (4, 16, 3), (2, 32, 2), (4, 32, 1), (2, 64, 1),
+                          (3, 64, 1))},
 }
 
 
@@ -572,6 +829,62 @@ FAST_VARIANTS = {
         "  return __vmaxu4(__vmaxu4(a, b), c);"),
 }
 
+OTSU_VARIANTS = {
+    "committed": lambda s: s,
+    **{f"lanes{lanes}_frames{frames}": chain(const("kLanes", lanes), const("kFrames", frames))
+       for lanes, counts in ((8, (4, 8, 16)), (16, (2, 4, 8, 16)), (32, (2, 4, 8)))
+       for frames in counts},
+}
+
+# A chain of @ADDS@ dependent __fadd_rn on one thread between two clock64 reads:
+# two lengths, so that the difference cancels the reads' own cost.
+FADD_PROBE = r"""#include <cuda_runtime.h>
+
+template <int kAdds>
+__global__ void fadd_chain(const float* x, float* out, long long* cycles) {
+  float a = x[0];
+  const float b = x[1];
+  const long long t0 = clock64();
+#pragma unroll
+  for (int i = 0; i < kAdds; ++i) a = __fadd_rn(a, b);
+  const long long t1 = clock64();
+  out[0] = a;
+  cycles[0] = t1 - t0;
+}
+
+extern "C" int gs_fadd_chain(const void* x, void* out, void* cycles, int adds) {
+  const auto xf = static_cast<const float*>(x);
+  const auto of = static_cast<float*>(out);
+  const auto c = static_cast<long long*>(cycles);
+  if (adds == 512) fadd_chain<512><<<1, 1>>>(xf, of, c);
+  else fadd_chain<1536><<<1, 1>>>(xf, of, c);
+  return cudaGetLastError();
+}
+"""
+
+
+def fadd_latency(dev):
+    """Cycles of one dependent ``__fadd_rn`` on the card: (cycles of 1536 adds -
+    cycles of 512) / 1024, the least of 5 runs of each."""
+    d = _build.BUILD_DIR / "sweep" / "otsu" / "fadd_probe"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "fadd_probe.cu").write_text(FADD_PROBE)
+    subprocess.run(_build.compile_command(d / "fadd_probe.cu", d / "fadd_probe.o"), check=True)
+    subprocess.run(_build.link_command([d / "fadd_probe.o"], d / "libfadd_probe.so"), check=True)
+    lib = ctypes.CDLL(str(d / "libfadd_probe.so"))
+    lib.gs_fadd_chain.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
+    x = torch.tensor([1.0, 2.0 ** -30], device=dev)
+    out = torch.empty(1, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    least = {}
+    for adds in (512, 1536) * 5:
+        if lib.gs_fadd_chain(x.data_ptr(), out.data_ptr(), cycles.data_ptr(), adds) != 0:
+            raise RuntimeError("the FADD probe did not launch")
+        torch.cuda.synchronize()
+        least[adds] = min(least.get(adds, 1 << 62), int(cycles.item()))
+    return {"cycles_512": least[512], "cycles_1536": least[1536],
+            "cycles_per_add": (least[1536] - least[512]) / 1024}
+
 
 def preproc_cases(dev):
     lena = torch.from_numpy(lena_batch(MAIN_N, MAIN_H, MAIN_W)).to(dev)
@@ -614,7 +927,9 @@ def bandwidth_cases(dev):
     x, y = (torch.randint(0, 256, (512, 512, 1024), dtype=torch.uint8, device=dev, generator=gen)
             for _ in range(2))  # the probe's 256 MiB
     out = torch.empty_like(x)
+    ragged = x.view(-1)[:2**26 + 12345 * 16 + 7]  # a part chunk and a tail past the last 16
     cases = {"copy": (x.shape, lambda: K.copy(x), lambda: K.copy_plain(x)),
+             "copy_ragged": (ragged.shape, lambda: K.copy(ragged), lambda: K.copy_plain(ragged)),
              "triad": (x.shape, lambda: K.triad(x, y), lambda: K.triad_plain(x, y))}
     lib, stream = _build.library(), _build.stream_of(x)
     # the library calls, and the committed entries called into the library's
@@ -654,9 +969,24 @@ def fast_cases(dev):
     }, {}
 
 
+def otsu_hist_cases(dev):
+    lena = torch.from_numpy(lena_batch(MAIN_N, MAIN_H, MAIN_W)).to(dev)
+    _, lena_hist = K.blur_hist(lena, MAIN_R)
+    doc = torch.from_numpy(document_batch(SCAN_N)).to(dev)
+    _, doc_hist = K.blur_hist(doc, 1)  # scan's blur(1) and its histograms
+    one = doc_hist[:1].contiguous()
+    cases = {}
+    for label, hist, total in ((f"lena_{MAIN_N}", lena_hist, MAIN_H * MAIN_W),
+                               (f"document_{SCAN_N}", doc_hist, doc[0].numel()),
+                               ("document_1", one, doc[0].numel())):
+        cases[f"otsu_{label}"] = (hist.shape, lambda h=hist, t=total: K.otsu(h, t),
+                                  lambda h=hist, t=total: K.otsu_plain(h, t))
+    return cases, {}
+
+
 # sources whose kernels are short enough that back-to-back calls may time the
 # host: their variants are also timed by the profiler's device events
-DEVICE_TIMED = ("fast",)
+DEVICE_TIMED = ("fast", "otsu", "bandwidth")
 
 SOURCES = {
     "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
@@ -668,11 +998,30 @@ SOURCES = {
                   bandwidth_cases, r"triad|copy|Used"),
     "resize": ("resize.cu", ("gs_resize",), RESIZE_VARIANTS, {}, resize_cases, r"resize|Used"),
     "fast": ("fast.cu", ("gs_fast",), FAST_VARIANTS, {}, fast_cases, r"fast|Used"),
+    "otsu": ("otsu.cu", ("gs_otsu",), OTSU_VARIANTS, {}, otsu_hist_cases, r"otsu|Used"),
 }
+# (kernel, library call) pairs that every variant is also timed against in
+# chip_smoke.alternate_windows, variants in order and then in reverse
+ALTERNATING = {"bandwidth": (("copy", "copy_"),)}
 
 
 def emit(phase, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def device_ms_or_none(fn):
+    """``device_ms(fn)``, tried twice; None where the profiler saw no device time."""
+    for _ in range(2):
+        try:
+            return device_ms(fn)
+        except AssertionError:
+            pass
+    return None
+
+
+def mean_or_none(values):
+    values = [v for v in values if v is not None]
+    return statistics.fmean(values) if values else None
 
 
 def build_variants(source, entries, variants, parent):
@@ -786,38 +1135,78 @@ def main():
     times = {name: {kernel: [] for kernel in cases} for name in order}
     device = {name: {kernel: [] for kernel in cases} for name in order}
     lib_times = {(kernel, label): [] for kernel, fns in library.items() for label in fns}
+    lib_device = {(kernel, label): [] for kernel, fns in library.items() for label in fns}
+    timed_on_device = args.source in DEVICE_TIMED
     for turn in (order, order[::-1]):
         for name in turn:
             _build._lib = libs[name]
             for kernel, (_, fn, _) in cases.items():
                 times[name][kernel].append(timeit(fn) * 1e3)
-                if args.source in DEVICE_TIMED:
-                    device[name][kernel].append(device_ms(fn))
+                if timed_on_device:
+                    device[name][kernel].append(device_ms_or_none(fn))
         for kernel, fns in library.items():
             for label, fn in fns.items():
                 lib_times[kernel, label].append(timeit(fn) * 1e3)
+                if timed_on_device:
+                    lib_device[kernel, label].append(device_ms_or_none(fn))
+    for kernel, label in ALTERNATING.get(args.source, ()):
+        alt = {name: [] for name in order}
+        for turn in (order, order[::-1]):
+            for name in turn:
+                _build._lib = libs[name]
+                alt[name].append(alternate_windows(cases[kernel][1], library[kernel][label]))
+        gaps = {name: [w["median_gap_ms"] for w in ws] for name, ws in alt.items()}
+        emit("alternating", card=card, source=source, kernel=kernel, library=label,
+             median_gap_ms=gaps, mean_gap_ms={name: statistics.fmean(g) for name, g in gaps.items()},
+             kernel_median_ms={name: [w["kernel"]["median_ms"] for w in ws]
+                               for name, ws in alt.items()},
+             library_median_ms={name: [w["library"]["median_ms"] for w in ws]
+                                for name, ws in alt.items()},
+             fastest=min(gaps, key=lambda name: statistics.fmean(gaps[name])),
+             windows="chip_smoke.alternate_windows (9 windows of 20 calls, kernel and library "
+                     "call in turns) for each variant, variants in order then in reverse")
     _build._lib = committed
     for kernel, (shape, _, _) in cases.items():
         ms = {name: times[name][kernel] for name in order}
         for label in library.get(kernel, ()):
             ms[f"library:{label}"] = lib_times[kernel, label]
-        dev_ms = ({"device_ms": {name: device[name][kernel] for name in order},
-                   "mean_device_ms": {name: statistics.fmean(device[name][kernel]) for name in order}}
-                  if args.source in DEVICE_TIMED else {})
+        dev_ms = {}
+        if timed_on_device:
+            dev_ms = {"device_ms": {name: device[name][kernel] for name in order},
+                      "mean_device_ms": {name: mean_or_none(device[name][kernel])
+                                         for name in order}}
+            for label in library.get(kernel, ()):
+                dev_ms["device_ms"][f"library:{label}"] = lib_device[kernel, label]
+                dev_ms["mean_device_ms"][f"library:{label}"] = mean_or_none(
+                    lib_device[kernel, label])
         emit("sweep", card=card, source=source, kernel=kernel, shape=list(shape), ms=ms,
              mean_ms={name: sum(v) / len(v) for name, v in ms.items()}, **dev_ms,
              windows="profiling.timeit (median of 3 windows of 20 calls), variants in order "
                      "then in reverse" + (", the library call after each turn" if library else ""))
-    if library:  # the library calls' own kernels, by name, from the profiler
+    if library:  # what each library call runs on the device, by name, from the profiler
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for fns in library.values():
-                for fn in fns.values():
-                    fn()
-            torch.cuda.synchronize()
-        emit("library_kernels", kernels=sorted({e.name for e in prof.events()
-                                                if e.device_type == torch.autograd.DeviceType.CUDA}))
+        on_device = {}
+        for kernel, fns in library.items():
+            for label, fn in fns.items():
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        fn()
+                    torch.cuda.synchronize()
+                names = {}
+                for e in prof.events():
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e4
+                on_device[f"{kernel}:{label}"] = names
+        emit("library_kernels", card=card, device_ms_a_call_by_name=on_device,
+             source="torch.profiler device events over 10 calls after a warm-up call")
+    if args.source == "otsu":
+        emit("fadd_latency", card=card, **fadd_latency(dev),
+             clock_mhz=subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                       "--format=csv,noheader,nounits"], capture_output=True,
+                                      text=True, check=True).stdout.strip())
     emit("elapsed", seconds=time.perf_counter() - t0)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,7 @@
   dilate), K13 ``filter3`` (the zero-padded 3x3 ``gs_filter``), and K15
   ``blur_hist_window`` and K16 ``threshold_sobel_window`` (K1 and K2 on one
   H-shard with its halo rows, at the frame's global rows)
-* :mod:`.otsu` — K3 ``otsu`` (the bit-exact float32 Otsu sweep, a thread per frame)
+* :mod:`.otsu` — K3 ``otsu`` (the bit-exact float32 Otsu sweep, a warp per frame)
 * :mod:`.integral` — K4 ``integral`` (uint32 2-D prefix sum: row scan, column scan)
 * :mod:`.lbp` — K5 ``lbp_eval_scale`` (one ladder scale of the LBP cascade, a
   thread per window with early exit)

@@ -1,10 +1,13 @@
 """Otsu's threshold from per-frame histograms, with its plain PyTorch version.
 
 :func:`otsu` (K3, ``csrc/otsu.cu:gs_otsu``) replaces the XLA sweep
-``grayskull_tpu/ops/histogram.py:_otsu_from_hist``: one thread per frame replays
-``gs_otsu_threshold``'s float32 sweep in C's order (sequential bin sums, the
-``wb == 0`` continue, the ``wf == 0`` break before ``sumB`` is updated,
+``grayskull_tpu/ops/histogram.py:_otsu_from_hist``: a warp takes a frame and
+gives ``gs_otsu_threshold``'s float32 sweep in C's order (sequential bin sums,
+the ``wb == 0`` continue, the ``wf == 0`` break before ``sumB`` is updated,
 ``((wb*wf)*d)*d`` and a strict first-max update), so thresholds are bit-exact.
+Only the two float sums run bin by bin, on one lane; the uint32 weight prefix,
+the skip and break bins, the variances and the first maximum are spread over
+the lanes.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 :func:`otsu_plain`.  ``launches`` counts the kernel launches.

@@ -28,6 +28,9 @@ SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
 NO_DENSE = {"adaptive": 0, "morph": 0, "filter3": 0, "resize": 0}  # K11-K14 not launched
 NO_SHARDED = {"blur_hist_window": 0, "threshold_sobel_window": 0, "copy": 0,  # K15-K18 neither
               "triad": 0}
+COPY_SIZES = [1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 12295, 16383, 16384,
+              16385, 2**20 + 3, 2**26]
+COPY_OFFSETS = (0, 1, 4, 8)  # bytes the operands start past a 16-byte boundary
 
 
 def otsu_edge_histograms():
@@ -55,6 +58,28 @@ def otsu_edge_histograms():
     big[[3, 200]] = [1 << 24 | 1, 5]  # counts past float32's exact integers
     cases["big_counts"] = big
     return [(k, v, int(v.sum())) for k, v in cases.items()]
+
+
+def otsu_batch_histograms():
+    """(name, (N, 256) int32 counts, total), each with its own total: 1 MP
+    multinomial frames, the same with totals the counts do not sum to, counts
+    whose running weight wraps past 2^32 (the bin where it reaches 0 is
+    skipped though its term is not 0), and all-zero frames."""
+    rng = np.random.default_rng(73)
+    total = 1 << 20
+    random = rng.multinomial(total, rng.dirichlet(np.full(256, 0.3), size=40)).astype(np.int32)
+    big = 2**31 - 1
+    wrap = np.zeros((4, 256), np.int64)
+    wrap[0, [0, 1, 2]] = [big, big, 2]
+    wrap[1, [0, 1, 2, 100]] = [big, big, 2, 5]
+    wrap[2, [5, 9, 30, 31, 200]] = [big, big, 1, 1, 7]
+    wrap[3, [10, 11, 12, 13]] = [big, big, 2, 9]
+    wrap = wrap.astype(np.int32)
+    zero = np.zeros((3, 256), np.int32)
+    return [("multinomial_1MP", random, total), ("total_below_counts", random, total - 1),
+            ("total_above_counts", random, total + 4099), ("wrap_total_1000", wrap, 1000),
+            ("wrap_total_9", wrap, 9), ("wrap_total_0", wrap, 0), ("wrap_total_max", wrap, big),
+            ("all_zero", zero, 0), ("all_zero_total_77", zero, 77)]
 
 
 def synthetic_cascade():
@@ -118,9 +143,24 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_otsu_edge_cases_on_card(cuda_device):
-    for name, hist, tot in otsu_edge_histograms():
-        h = torch.from_numpy(hist.astype(np.int32)[None]).to(cuda_device)
-        assert torch.equal(K.otsu(h, tot), K.otsu_plain(h, tot)), name
+    """The sweep's corner cases, wrapped weights and totals the counts do not
+    sum to, each with 16-byte-aligned rows and with rows 4 bytes off."""
+    cases = [(name, hist[None], tot) for name, hist, tot in otsu_edge_histograms()]
+    for name, hists, total in cases + otsu_batch_histograms():
+        h = torch.from_numpy(hists.astype(np.int32)).to(cuda_device)
+        off = torch.zeros(h.numel() + 1, dtype=torch.int32, device=cuda_device)[1:].view(h.shape)
+        off.copy_(h)
+        for x in (h, off):
+            assert torch.equal(K.otsu(x, total), K.otsu_plain(x, total)), (name, x.data_ptr() % 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 8, 33, 65537])
+def test_otsu_frame_counts_on_card(cuda_device, frames):
+    """A part of one block, whole blocks and a part, and many blocks."""
+    _, random, total = otsu_batch_histograms()[0]
+    h = torch.from_numpy(np.resize(random, (frames, 256))).to(cuda_device)
+    assert torch.equal(K.otsu(h, total), K.otsu_plain(h, total))
 
 
 @pytest.mark.cuda
@@ -668,14 +708,14 @@ def test_window_kernels_match_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097,
-                                  16383, 16384, 16385, 2**20 + 3, 2**26])
+@pytest.mark.parametrize("size", COPY_SIZES)
 def test_copy_and_triad_match_plain_on_card(cuda_device, size):
-    """Sizes around one K18 thread's vector (16 bytes) and one 256-thread
-    block's (4096), and the 64, 2048 and 16384 bytes of chip_sweep.py's chunked
+    """Sizes around one thread's vector (16 bytes) and one 256-thread block's
+    (4096: K17's and K18's span a block; 12295 is three blocks and a 7-byte
+    tail), and the 64, 2048 and 16384 bytes of chip_sweep.py's chunked
     variants, the pointers 16-byte aligned, then 1, 4 and 8 bytes off."""
     x, y = (_frames((size + 8,), 71 + i, cuda_device) for i in range(2))
-    for off in (0, 1, 4, 8):
+    for off in COPY_OFFSETS:
         a, b = x[off:off + size], y[off:off + size]
         assert torch.equal(K.copy(a), K.copy_plain(a)), off
         assert torch.equal(K.triad(a, b), K.triad_plain(a, b)), off

@@ -10,6 +10,7 @@ version is also held to the XLA window evaluation ``_eval_windows_jit``.
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -29,8 +30,8 @@ from grayskull_tpu.ops.lbp import _eval_windows_jit
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.kernels.lbp import scale_tables
-from tests.test_torch_cuda import (host_arrays_on_cpu, otsu_edge_histograms,  # noqa: F401
-                                   synthetic_cascade)
+from tests.test_torch_cuda import (COPY_OFFSETS, COPY_SIZES, host_arrays_on_cpu,  # noqa: F401
+                                   otsu_batch_histograms, otsu_edge_histograms, synthetic_cascade)
 
 STENCIL_SHAPES = [(1, 13, 136), (1, 97, 200), (1, 7, 8), (1, 17, 129)]
 
@@ -96,6 +97,100 @@ def test_otsu_vs_xla_sweep():
     for name, hist, tot in otsu_edge_histograms():
         got = K.otsu(torch.from_numpy(hist.astype(np.int32)[None]), tot)
         assert int(got[0]) == int(jax_otsu_from_histogram(hist.astype(np.uint32), tot)), name
+
+
+def otsu_lane_replay(hist, total, lanes):
+    """K3's decomposition in numpy (``csrc/otsu.cu``): ``lanes`` lanes a frame,
+    each on 256 / lanes consecutive bins.  The uint32 weight prefix is each
+    lane's own prefix plus a scan across the lanes; the skipped bins (wb == 0)
+    and the first break (a bin not skipped with total - wb == 0) come from it;
+    the two float32 chains run bin by bin, sumB over the products with 0 in
+    place of the bins the sweep does not take; each taken bin's variance is
+    ((wb*wf)*d)*d; the threshold is the largest variance, ties to the lowest
+    bin, or 0 with no taken bin."""
+    counts = np.asarray(hist, np.int64).astype(np.uint32)
+    n, per = counts.shape[0], 256 // lanes
+    own = np.cumsum(counts.reshape(n, lanes, per), axis=2, dtype=np.uint32)
+    lane_sums = own[:, :, -1]
+    before = np.cumsum(lane_sums, axis=1, dtype=np.uint32) - lane_sums
+    wb = (before[:, :, None] + own).reshape(n, 256)
+    wf = np.uint32(total) - wb
+    live = wb != 0
+    breaks = live & (wf == 0)
+    brk = np.where(breaks.any(axis=1), breaks.argmax(axis=1), 256)
+    taken = live & (np.arange(256)[None] < brk[:, None])
+    terms = np.arange(256, dtype=np.float32)[None] * counts.astype(np.float32)
+    taken_terms = np.where(taken, terms, np.float32(0))
+    total_sum = np.zeros(n, np.float32)
+    sum_b = np.zeros(n, np.float32)
+    prefix = np.zeros((n, 256), np.float32)
+    for t in range(256):
+        total_sum = total_sum + terms[:, t]
+        sum_b = sum_b + taken_terms[:, t]
+        prefix[:, t] = sum_b
+    fb = np.where(taken, wb.astype(np.float32), np.float32(1))
+    ff = np.where(taken, wf.astype(np.float32), np.float32(1))
+    d = prefix / fb - (total_sum[:, None] - prefix) / ff
+    var = ((fb * ff) * d) * d
+    assert np.isfinite(var[taken]).all() and (var[taken] >= 0).all()
+    var = np.where(taken, var, np.float32(-1))
+    best = var.max(axis=1)
+    return np.where(best >= 0, (var == best[:, None]).argmax(axis=1), 0).astype(np.uint8)
+
+
+OTSU_REPLAY_CASES = otsu_batch_histograms() + [
+    (name, hist.astype(np.int32)[None], total) for name, hist, total in otsu_edge_histograms()]
+
+
+@pytest.mark.parametrize("case", OTSU_REPLAY_CASES, ids=[c[0] for c in OTSU_REPLAY_CASES])
+def test_otsu_lane_decomposition_replayed(case):
+    """The replay at 8, 16 and 32 lanes a frame (the committed kLanes among
+    them) equals ``otsu_plain`` and the XLA sweep, wrapped weights and totals
+    the counts do not sum to included."""
+    name, hists, total = case
+    text = (_build.CSRC_DIR / "otsu.cu").read_text()
+    assert int(re.search(r"constexpr int kLanes = (\d+);", text).group(1)) in (8, 16, 32)
+    plain = K.otsu(torch.from_numpy(hists), total)
+    _eq(plain, jax_otsu_from_histogram(hists.astype(np.uint32), total), name)
+    for lanes in (8, 16, 32):
+        np.testing.assert_array_equal(otsu_lane_replay(hists, total, lanes), plain.numpy(),
+                                      err_msg=f"{name} {lanes} lanes")
+
+
+def copy_writes(n, aligned, threads):
+    """How many times K17's launch (``csrc/bandwidth.cu:gs_copy``) writes each of
+    ``n`` bytes.  Both pointers 16-byte aligned: blocks of ``threads`` threads,
+    at least one, thread i of the grid moving 16-byte vector i below n / 16, and
+    the last block's thread j byte n / 16 * 16 + j below n.  Otherwise a thread
+    a byte over blockDim 256.  Returns the counts and the grid size."""
+    writes = np.zeros(n, np.int8)
+    if aligned:
+        n_vec = n // 16
+        blocks = max(-(-n_vec // threads), 1)
+        vectors = min(blocks * threads, n_vec)  # the grid's threads below n_vec
+        writes[:16 * vectors] += 1
+        tail = n_vec * 16 + np.arange(threads)
+        writes[tail[tail < n]] += 1
+    else:
+        blocks = -(-n // 256)
+        writes[:min(blocks * 256, n)] += 1
+    return writes, blocks
+
+
+@pytest.mark.parametrize("size", COPY_SIZES)
+def test_copy_tail_and_alignment_replayed(size):
+    """At the card test's sizes and offsets, K17's vectors, its last block's
+    tail and its byte path write every byte once, in a grid below 2^31 blocks;
+    ``copy`` on the CPU returns the same bytes."""
+    text = (_build.CSRC_DIR / "bandwidth.cu").read_text()
+    threads = int(re.search(r"constexpr int kCopyThreads = (\d+);", text).group(1))
+    assert threads >= 16  # the last block covers a tail of up to 15 bytes
+    x = np.random.default_rng(size).integers(0, 256, size + 8, dtype=np.uint8)
+    for off in COPY_OFFSETS:
+        writes, blocks = copy_writes(size, off % 16 == 0, threads)
+        assert (writes == 1).all() and blocks <= 2**31 - 1, off
+        a = torch.from_numpy(x[off:off + size])
+        assert torch.equal(K.copy(a), a), off
 
 
 def test_plain_runs_on_cpu_without_counting():
