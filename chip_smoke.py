@@ -49,7 +49,7 @@ counts set to 0 just before it and read just after:
 Then it times the paths with CUDA events, profiles preprocess, detect_faces,
 orb_extract, track, the scanner, config #2, the resize and the sharded
 preprocess (``torch.profiler``: device time by kernel and op, idle share, host
-enqueue time), takes K6's, K7's and K8's device time from the profiler, and
+enqueue time), takes K6's, K7's, K8's and K9's device time from the profiler, and
 measures K5's real work: each window's exit stage on two faces frames (the
 plain version with the cascade cut to its first s stages), the weaks a window
 runs and the divergence of 32 neighbouring windows, from which K5's bound is
@@ -167,6 +167,8 @@ SCAN_N, SCAN_PAGE, SCAN_CAP = 8, (1000, 800), 1000
 CCL_SHAPES = [(1, 1, 4096), (1, 4096, 1), (1, 7, 8), (1, 17, 129), (1, 768, 1024),
               (8, 768, 1024)]
 CCL_DENSITIES = (0.3, 0.55, 0.6)
+CCL_WIDTHS = (129, 257, 1023)  # one past one and two of K9's 128-wide tiles, and odd
+CCL_MANY_FRAMES = (65537, 4, 8)  # past grid.y's 65,535 frames
 WARP_PAGES = [(1000, 800), (347, 200), (1, 10), (10, 1), (4000, 3000)]
 WARP_QUADS = {  # on document.pgm (768 wide, 1024 high), tests/test_integral_template_warp.py:193
     "mild": [[50, 40], [700, 60], [690, 1000], [40, 980]],
@@ -810,6 +812,19 @@ def keypoint_cases(rng, h, w, k_random):
     return np.stack([xs, xs[::-1]]), np.stack([ys, ys[::-1]])
 
 
+def large_keypoint_set(rng, xs, ys, h, w, k):
+    """(2, k) int32 coordinates on ``xs``/``ys``'s device: ``xs``/``ys`` first,
+    then random keypoints, a third with the whole r = 20 disc in an h x w frame
+    and the rest anywhere from 25 pixels before the frame to 25 past it."""
+    more = k - xs.shape[1]
+    inner = more // 3
+    def coords(size, lo, hi):
+        return np.concatenate([rng.integers(20, size - 20, (2, inner)),
+                               rng.integers(lo, hi, (2, more - inner))], 1).astype(np.int32)
+    return (torch.cat([xs, torch.from_numpy(coords(w, -25, w + 25)).to(xs.device)], 1).contiguous(),
+            torch.cat([ys, torch.from_numpy(coords(h, -25, h + 25)).to(ys.device)], 1).contiguous())
+
+
 def phase_orb_kernels(chk, rng, dev):
     for shape in FAST_SHAPES:
         for name, frames in fast_frames(shape, rng):
@@ -847,10 +862,32 @@ def phase_orb_kernels(chk, rng, dev):
     angles = np.concatenate([special, rng.uniform(-np.pi, np.pi, k - len(special))])
     angles = torch.from_numpy(np.stack([angles, angles[::-1]]).astype(np.float32)).to(dev)
     sin, cos = libm32.sinf(angles), libm32.cosf_like_reference(angles)
-    for r in (15, 0, 7, 20):
+    for r in (15, 0, 1, 7, 20):
         for a, b, what in zip(K.orb_moments(imgs, xs, ys, r), K.orb_moments_plain(imgs, xs, ys, r),
                               ("m01", "m10")):
             chk.same("orb_moments", a, b, f"edge keypoints r={r} {what}")
+    # K7's words: keypoints at every x mod 4, on frames of an odd width (every
+    # row misalignment), inside the frame and at its edges
+    odd = torch.from_numpy(rng.integers(0, 256, (2, 61, 203), dtype=np.uint8)).to(dev)
+    mx, my = (torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in keypoint_cases(rng, 61, 203, 4))
+    mod = torch.arange(24, 40, dtype=torch.int32, device=dev)
+    mx = torch.cat([mx, torch.stack([mod, mod + 140])], 1).contiguous()
+    my = torch.cat([my, torch.stack([mod % 5 + 25, mod % 7 + 21])], 1).contiguous()
+    for r in (0, 1, 15, 20):
+        for a, b, what in zip(K.orb_moments(odd, mx, my, r), K.orb_moments_plain(odd, mx, my, r),
+                              ("m01", "m10")):
+            chk.same("orb_moments", a, b, f"every x mod 4, width 203, r={r} {what}")
+    # a call with a 1024-thread block for every SM takes K7's other instance
+    # (weights from the block's shared table): the same keypoints, then 2 x
+    # 2,464 more, a third with the whole r = 20 disc inside, the rest anywhere
+    lx, ly = large_keypoint_set(rng, mx, my, 61, 203, 2500)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if lx.numel() < sms * 32:
+        raise AssertionError(f"{lx.numel()} keypoints do not give {sms} SMs a 1024-thread block")
+    for r in (0, 1, 15, 20):
+        for a, b, what in zip(K.orb_moments(odd, lx, ly, r), K.orb_moments_plain(odd, lx, ly, r),
+                              ("m01", "m10")):
+            chk.same("orb_moments", a, b, f"{lx.numel()} keypoints, width 203, r={r} {what}")
     chk.same("orb_brief", K.orb_brief(imgs, xs, ys, sin, cos),
              K.orb_brief_plain(imgs, xs, ys, sin, cos), "edge keypoints")
     # the main path's shapes: 16 frames of 640x480, their 500 keypoints and real angles
@@ -1084,9 +1121,17 @@ def phase_scan_kernels(chk, rng, dev):
              ("spiral 1024x1024", spiral(1024, 1024)[None]),
              ("all foreground", np.full((2, 300, 400), 255, np.uint8)),
              ("empty", np.zeros((2, 300, 400), np.uint8))]
-    for shape in CCL_SHAPES:
+    for shape in CCL_SHAPES + [(2, 67, w) for w in CCL_WIDTHS]:
         for d in CCL_DENSITIES:
             cases.append((f"{shape} density {d}", ((rng.random(shape) < d) * 255).astype(np.uint8)))
+    # a comb: columns joined by bars every 37 rows, so components cross every tile border
+    comb = np.zeros((1, 520, 1000), np.uint8)
+    comb[:, :, ::2] = 255
+    comb[:, ::37, :] = 255
+    cases += [("comb", comb), ("comb, bars removed", np.where(np.arange(520)[:, None] % 37 == 0, 0,
+                                                             comb[0])[None].astype(np.uint8)),
+              (f"{CCL_MANY_FRAMES} density 0.5",
+               ((rng.random(CCL_MANY_FRAMES) < 0.5) * 255).astype(np.uint8))]
     for what, frames in cases:
         imgs = torch.from_numpy(frames).to(dev)
         chk.same("ccl", K.ccl(imgs), K.ccl_plain(imgs), what)
@@ -1116,6 +1161,7 @@ def phase_scan_kernels(chk, rng, dev):
         torch.cuda.synchronize()
     emit("scan_kernels_vs_plain", ok=True, ccl_cases=len(cases) + 1,
          ccl_shapes=[list(s) for s in CCL_SHAPES], densities=list(CCL_DENSITIES),
+         ccl_widths=list(CCL_WIDTHS), ccl_many_frames=list(CCL_MANY_FRAMES),
          warp_quads=sorted(WARP_QUADS), warp_pages=[list(p) for p in WARP_PAGES],
          full_frame_centroid=want, checks={k: chk.checks[k] for k in ("ccl", "quad_warp")},
          max_abs_err={k: chk.max_err[k] for k in ("ccl", "quad_warp")})
@@ -1252,6 +1298,20 @@ def phase_scan_timing(batch, corners, card):
             "grid_sample(bilinear, align_corners=True) of the float frames at the same "
             "coordinates: not bit-exact"),
     }
+    # K9's three kernels by the profiler: back-to-back events read the host too
+    gen = torch.Generator(device=batch.device).manual_seed(13)
+    noise = ((torch.rand(binary.shape, generator=gen, device=batch.device) < 0.55) * 255).to(
+        torch.uint8)
+    times["ccl"]["device_ms"] = device_ms(lambda: K.ccl(binary))
+    emit("scan_kernel_device_time", card=card, shape=list(binary.shape),
+         device_ms={"ccl": times["ccl"]["device_ms"],
+                    "ccl_one_frame": device_ms(lambda: K.ccl(binary[:1])),
+                    "ccl_density_0.55": device_ms(lambda: K.ccl(noise))},
+         device_ms_by_kernel={label: profile_calls(K.ccl, x)["device_ms_by_kernel"]
+                              for label, x in (("ccl", binary), ("ccl_one_frame", binary[:1]))},
+         event_ms={"ccl": times["ccl"]["ms"]},
+         source="torch.profiler device events over 20 calls after a warm-up call (by "
+                "kernel: over 10 calls, chip_smoke.profile_calls)")
     for name, entry in times.items():
         emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), **entry)
     for label, frames in (("scan 8 frames", batch), ("scan 1 frame", single)):
@@ -1395,22 +1455,25 @@ def phase_dense_path(chk, dev):
     return batch, out, launches
 
 
-def device_ms(fn, calls=20):
+def device_ms(fn, calls=20, sessions=3):
     """Device time of one call of ``fn()`` from ``torch.profiler`` (device events
-    only, summed over the kernels it launches), after one warm-up call."""
+    only, summed over the kernels it launches), after one warm-up call.  Now and
+    then a profiler session records no device events at all; such a session is
+    run again, up to ``sessions`` in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / calls
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / calls
+    raise AssertionError(f"the profiler saw no device time in {sessions} sessions")
 
 
 def phase_dense_timing(batch, binary, card):

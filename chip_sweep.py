@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
-    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu}]
+    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu,patches,ccl}]
                           [--parent DIR ...] [--only NAME ...]
 
 It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
@@ -90,6 +90,28 @@ of the u16 DPX instructions, on 16 frames of lena at 640x480 (keys; keys and
 the score map) and 16 random frames, at threshold 20.  Its kernels are short,
 so each variant is timed by the profiler's device events too.
 
+``--source patches``: K7's layout (8 lanes a row on 4-byte words; the
+parent's lane a row comes with ``--parent``; lanes along a row's columns, a
+byte each), the blocks (``kSmallThreads``: 128, 256; ``kLargeThreads``: 512,
+1024; small or large blocks for every call), keypoints a warp (1, 2, 4: the
+``KEYS_A_WARP`` kernel), weights from a shared table or computed by each
+lane in either block size, dp4a against four multiply-adds, and every keypoint
+through the guarded path; on
+the 16 x 500
+keypoints of ``orb_extract`` on lena (clamped as ``orb_extract`` clamps them)
+and on ``track``'s six levels of aruco (template and scene, 833 or 2,500
+keypoints each).  K8 is held to its plain version in the same libraries and
+timed beside them.  Device time too.
+
+``--source ccl``: K9's tile (``kTileH`` x ``kTileW``: 32x128, 16x256, 64x64,
+16x128, 32x256, 8x256), the flatten of every tile or only of tiles with a
+foreground pair across their edge (``FLAGGED_TILES``), labels stored through
+shared memory or by each thread, and ablations that skip
+the tile pass's unions, pointer jumping or whole labelling or the flatten's
+label work (timed, not checked); on scan's 8 document binaries, one of them and 8
+random frames of 1024x768 at density 0.55, and the whole 8-frame ``scan``
+with each variant's K9.  Device time too.
+
 Each phase prints one JSON line; the last line is ``{"ok": true, ...}``.
 """
 
@@ -106,9 +128,15 @@ import time
 import torch
 
 from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FILTER_TAPS, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
-                        ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_N, alternate_windows, card_line,
-                        device_ms, document_batch, lena_batch, receipt_batch)
+                        ORB_CAP, ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_CAP, SCAN_N, SCAN_PAGE,
+                        TRACK_KPS, _aruco,
+                        alternate_windows, card_line, device_ms, document_batch, lena_batch,
+                        receipt_batch)
+import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
+from grayskull_tpu_torch import libm32
+from grayskull_tpu_torch.ops.pixel import downsample
+from grayskull_tpu_torch.pipelines.orb import pyramid_levels
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.profiling import timeit
 
@@ -984,9 +1012,266 @@ def otsu_hist_cases(dev):
     return cases, {}
 
 
+# K7 with lanes along a row's columns, a byte each: a warp takes a keypoint,
+# lane l columns l - r and l + 32 - r, and walks the disc's rows.
+COLUMN_BYTES = r"""// Grid ceil(n * k / (kThreads / 32)), block kThreads.
+template <int kThreads, int kMinBlocks, bool kWeightTable>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+orb_moments_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
+                   const int* __restrict__ ys, int* __restrict__ m01, int* __restrict__ m10,
+                   int n, int h, int w, int k, int r) {
+  const int lane = threadIdx.x % 32;
+  const int kp = blockIdx.x * (kThreads / 32) + static_cast<int>(threadIdx.x) / 32;
+  if (kp >= n * k) return;
+  const uint8_t* f = imgs + static_cast<size_t>(kp / k) * h * w;
+  const int x = xs[kp], y = ys[kp];
+  const bool inside = x >= r && x + r < w && y >= r && y + r < h;
+  int s01 = 0, s10 = 0;
+  for (int dy = -r; dy <= r; ++dy) {
+    for (int dx = lane - r; dx <= r; dx += 32) {
+      if (dx * dx + dy * dy > r * r) continue;
+      const int p = inside ? f[static_cast<size_t>(y + dy) * w + x + dx]
+                           : pixel(f, x + dx, y + dy, h, w);
+      s01 += dy * p;
+      s10 += dx * p;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s01 += __shfl_xor_sync(0xffffffffu, s01, off);
+    s10 += __shfl_xor_sync(0xffffffffu, s10, off);
+  }
+  if (lane == 0) {
+    m01[kp] = s01;
+    m10[kp] = s10;
+  }
+}
+
+"""
+
+# K7 with @KEYS@ keypoints a warp, 32 / @KEYS@ lanes each (8 lanes a row)
+KEYS_A_WARP = r"""constexpr int kKeyLanes = 32 / @KEYS@;
+constexpr int kKeyRowsPerStep = kKeyLanes / kRowLanes;
+constexpr int kKeySteps = (kDiscRows + kKeyRowsPerStep - 1) / kKeyRowsPerStep;
+
+// Grid ceil(n * k / (kThreads / kKeyLanes)), block kThreads.
+template <int kThreads, int kMinBlocks, bool kWeightTable>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+orb_moments_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
+                   const int* __restrict__ ys, int* __restrict__ m01, int* __restrict__ m10,
+                   int n, int h, int w, int k, int r) {
+  __shared__ uint2 low[kWeightTable ? kDiscRows : 1][kRowLanes];
+  __shared__ uint2 high[kWeightTable ? kDiscRows : 1][kHighWords];
+  const int lane = threadIdx.x % 32;
+  const int kl = lane % kKeyLanes;  // the lane within its keypoint's lanes
+  const int rq = kl / kRowLanes, c = kl % kRowLanes;
+  const int kp = blockIdx.x * (kThreads / kKeyLanes) + static_cast<int>(threadIdx.x) / kKeyLanes;
+  const bool valid = kp < n * k;
+  const int x = valid ? xs[kp] : 0, y = valid ? ys[kp] : 0;
+  const int rows = 2 * r + 1;
+  const int words = (rows + 3) / 4;
+  if (kWeightTable) {
+    for (int e = threadIdx.x; e < rows * (kRowLanes + kHighWords); e += kThreads) {
+      const int i = e / (kRowLanes + kHighWords), j = e % (kRowLanes + kHighWords);
+      const uint2 wt = word_weights(r, r * r - (i - r) * (i - r), j);
+      if (j < kRowLanes) {
+        low[i][j] = wt;
+      } else {
+        high[i][j - kRowLanes] = wt;
+      }
+    }
+    __syncthreads();
+  }
+  if (!valid) return;  // the whole keypoint's lanes leave together
+  const uint8_t* f = imgs + static_cast<size_t>(kp / k) * h * w;
+  int s01 = 0, s10 = 0;
+  if (x >= r && x + r < w && y >= r && y + r < h) {
+#pragma unroll
+    for (int step = 0; step < kKeySteps; ++step) {
+      const int i = rq + step * kKeyRowsPerStep;
+      if (i < rows) {
+        int sum;
+        row_terms<true, kWeightTable>(f, x, y, h, w, r, i, c, words, low, high, sum, s10);
+        s01 += (i - r) * sum;
+      }
+    }
+  } else {
+    for (int i = rq; i < rows; i += kKeyRowsPerStep) {
+      int sum;
+      row_terms<false, kWeightTable>(f, x, y, h, w, r, i, c, words, low, high, sum, s10);
+      s01 += (i - r) * sum;
+    }
+  }
+  const unsigned mask = (0xffffffffu >> (32 - kKeyLanes)) << (lane - kl);  // the keypoint's lanes
+#pragma unroll
+  for (int off = kKeyLanes / 2; off > 0; off >>= 1) {
+    s01 += __shfl_xor_sync(mask, s01, off);
+    s10 += __shfl_xor_sync(mask, s10, off);
+  }
+  if (kl == 0) {
+    m01[kp] = s01;
+    m10[kp] = s10;
+  }
+}
+
+"""
+K7_KERNEL_START = "// Grid ceil(n * k / (kThreads / 32)), block kThreads: a warp takes a keypoint,"
+K7_KERNEL_END = "// Grid min(ceil(n * k / kWarps), kMaxBriefBlocks)"
+K7_LARGE = "orb_moments_kernel<kLargeThreads, 2048 / kLargeThreads, true>"
+K7_SMALL = "orb_moments_kernel<kSmallThreads, 1, false>"
+
+
+def keys_a_warp(keys):
+    """K7 as KEYS_A_WARP: ``keys`` keypoints a warp, in blocks of as many threads."""
+    def make(s):
+        s = replace_span(s, K7_KERNEL_START, K7_KERNEL_END, fill(KEYS_A_WARP, keys=keys))
+        return edit(s, "large_keys = kLargeThreads / 32, small_keys = kSmallThreads / 32;",
+                    "large_keys = kLargeThreads / kKeyLanes, small_keys = kSmallThreads / kKeyLanes;")
+    return make
+
+
+PATCHES_VARIANTS = {
+    "committed": lambda s: s,
+    "small_blocks_only": lambda s: edit(s, "if (total >= sms * large_keys) {", "if (false) {"),
+    "large_blocks_only": lambda s: edit(s, "if (total >= sms * large_keys) {", "if (true) {"),
+    "large512": const("kLargeThreads", 512),
+    "small128": const("kSmallThreads", 128),
+    **{f"keys{k}": keys_a_warp(k) for k in (2, 4)},
+    "small_table": lambda s: edit(s, K7_SMALL, K7_SMALL.replace("false", "true")),
+    "large_lane_weights": lambda s: edit(s, K7_LARGE, K7_LARGE.replace("true", "false")),
+    # the dp4a's plain C++ fallback, four multiply-adds a word, on the card
+    "multiply_add": lambda s: replace_n(s, "#if defined(__CUDA_ARCH__)\n  int d;",
+                                        "#if 0\n  int d;", 2),
+    # every keypoint through the guarded path: a bounds test a byte
+    "guarded_only": lambda s: edit(s, "if (x >= r && x + r < w && y >= r && y + r < h) {",
+                                   "if (false) {"),
+    "column_bytes": lambda s: replace_span(s, K7_KERNEL_START, K7_KERNEL_END, COLUMN_BYTES),
+}
+
+# K9's flatten of only the tiles with a foreground pair across their edge
+FLAGGED_TILES = r"""// Whether a foreground pixel of this thread's 16 has a foreground neighbour in
+// another tile.
+__device__ bool crosses(const uint8_t* __restrict__ frame, unsigned m, const Tile& t, int r,
+                        int q, int h, int w, bool vec) {
+  const int y = t.ty + r, x = t.tx + q * kChunk;
+  bool any = false;
+  if (r == 0) any |= (m & load_mask(frame, y - 1, x, h, w, vec)) != 0u;
+  if (r == kTileH - 1) any |= (m & load_mask(frame, y + 1, x, h, w, vec)) != 0u;
+  if (q == 0 && (m & 1u) && x > 0) any |= frame[static_cast<size_t>(y) * w + x - 1] >= 128;
+  if (q == kChunks - 1 && (m >> (kChunk - 1)) && x + kChunk < w) {
+    any |= frame[static_cast<size_t>(y) * w + x + kChunk] >= 128;
+  }
+  return any;
+}
+
+"""
+K9_FLATTEN = "// Grid (tiles, min(n, kMaxFrameBlocks)), block kTileThreads, as tile_kernel."
+K9_PIECES = "    // The pixels of a run piece link to one tile root T;"
+
+
+def _flagged(s):
+    s = edit(s, K9_FLATTEN, FLAGGED_TILES + K9_FLATTEN)
+    return edit(s, K9_PIECES, "    if (!__syncthreads_or(crosses(src + offset, m, t, r, q, h, w, vec_in))) "
+                              "continue;\n" + K9_PIECES)
+
+
+# K9's labels stored by each thread, 16 at a time, in place of through shared memory
+def _direct_stores(s):
+    return replace_span(
+        s, "    __syncthreads();  // every find is done: the labels go through parent",
+        "    __syncthreads();  // bits and parent are reused by the next frame",
+        "    if (y < h && x < w) {\n"
+        "      store_chunk(label + offset + static_cast<size_t>(y) * w + x, w - x, vec_out, out);\n"
+        "    }\n")
+
+
+CCL_VARIANTS = {
+    "committed": lambda s: s,
+    "flagged": _flagged,
+    "direct_stores": _direct_stores,
+    **{f"tile{th}x{tw}": chain(const("kTileH", th), const("kTileW", tw))
+       for th, tw in ((16, 256), (64, 64), (16, 128), (32, 256), (8, 256))},
+    "tile16x128_flagged": chain(const("kTileH", 16), _flagged),
+    # phase 3's loop over a thread's 16 pixels not unrolled (its finds inlined once)
+    "labels_loop_rolled": lambda s: edit(
+        s, "#pragma unroll\n    for (int i = 0; i < kChunk; ++i) {\n      if ((m >> i) & 1u) {",
+        "#pragma unroll 1\n    for (int i = 0; i < kChunk; ++i) {\n      if ((m >> i) & 1u) {"),
+    "tile16x128_direct_stores": chain(const("kTileH", 16), _direct_stores),
+}
+# stages of tile_kernel and flatten_kernel skipped (wrong labels that still
+# point at smaller or equal indices, timed only): where their time goes
+CCL_ABLATIONS = {
+    "load_store_only": lambda s: edit(
+        s, "    const unsigned left = q > 0 ? bits[r][q - 1] >> (kChunk - 1) : 0u;  // pixel c0 - 1\n",
+        "    for (int i = 0; i < kChunk; ++i) out[i] = (m >> i) & 1u ? y * w + x + i : -1;\n"
+        "    if (y < h && x < w) {\n"
+        "      store_chunk(label + offset + static_cast<size_t>(y) * w + x, w - x, vec_out, out);\n"
+        "    }\n"
+        "    continue;\n"
+        "    const unsigned left = q > 0 ? bits[r][q - 1] >> (kChunk - 1) : 0u;  // pixel c0 - 1\n"),
+    "flatten_masks_only": lambda s: edit(s, "    int* parent = label + offset;\n    for (unsigned pieces",
+                                         "    continue;\n    int* parent = label + offset;\n"
+                                         "    for (unsigned pieces"),
+    "no_unions": lambda s: edit(s, "    if (r > 0) {  // unite with the runs above",
+                                "    if (false) {  // unite with the runs above"),
+    "no_jumps": lambda s: edit(s, "    } while (__syncthreads_or(jumped));",
+                               "    } while (false && __syncthreads_or(jumped));"),
+}
+
+
+def patches_cases(dev):
+    """K7 at the main path's shapes (16 x 500 keypoints of orb_extract on lena,
+    clamped as orb_extract clamps them) and at track's six levels (aruco's
+    template and scene, 3 levels each); K8 at the main shapes."""
+    batch = torch.from_numpy(lena_batch(ORB_N, ORB_H, ORB_W, roll=5)).to(dev)
+    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
+    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
+    sin, cos = libm32.sinf(kps.angle), libm32.cosf_like_reference(kps.angle)
+    cases = {
+        "orb_moments_16x500": (sx.shape, lambda: K.orb_moments(batch, sx, sy),
+                               lambda: K.orb_moments_plain(batch, sx, sy)),
+        "orb_brief_16x500": (sx.shape, lambda: K.orb_brief(batch, sx, sy, sin, cos),
+                             lambda: K.orb_brief_plain(batch, sx, sy, sin, cos)),
+    }
+    aruco = _aruco()
+    frames = {"template": torch.from_numpy(aruco[100:350, 150:450].copy()).to(dev),
+              "scene": torch.from_numpy(aruco).to(dev)}
+    for name, frame in frames.items():  # track's levels: an equal split, the last takes the rest
+        cur = frame[None]
+        levels = pyramid_levels(cur.shape[-2:])
+        for lvl, (h, w) in enumerate(levels):
+            if lvl:
+                cur = downsample(cur)
+            cap = TRACK_KPS if lvl == len(levels) - 1 else TRACK_KPS // len(levels)
+            t = gt.orb_extract(cur, cap, ORB_THR)
+            x, y = t.x.clamp(15, w - 16), t.y.clamp(15, h - 16)
+            cases[f"orb_moments_track_{name}_{h}x{w}"] = (
+                x.shape, lambda c=cur, x=x, y=y: K.orb_moments(c, x, y),
+                lambda c=cur, x=x, y=y: K.orb_moments_plain(c, x, y))
+    return cases, {}
+
+
+def ccl_cases(dev):
+    """K9 on scan's 8 document binaries, on one of them, and on 8 random frames
+    of 1024x768 at density 0.55 (near percolation: unions matter there); and the
+    whole 8-frame ``scan`` with each variant's K9 (its other kernels committed)."""
+    frames = torch.from_numpy(document_batch(SCAN_N)).to(dev)
+    binary = gt.preprocess_binarize(frames)
+    one = binary[:1].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    noise = ((torch.rand(binary.shape, generator=gen, device=dev) < 0.55) * 255).to(torch.uint8)
+    cases = {f"ccl_{label}": (x.shape, lambda x=x: K.ccl(x), lambda x=x: K.ccl_plain(x))
+             for label, x in ((f"document_{SCAN_N}", binary), ("document_1", one),
+                              (f"density_0.55_{SCAN_N}", noise))}
+    cases[f"scan_document_{SCAN_N}"] = (
+        frames.shape, lambda: gt.scan(frames, SCAN_PAGE, SCAN_CAP),
+        lambda: gt.scan(frames, SCAN_PAGE, SCAN_CAP, force_reference=True))
+    return cases, {}
+
+
 # sources whose kernels are short enough that back-to-back calls may time the
 # host: their variants are also timed by the profiler's device events
-DEVICE_TIMED = ("fast", "otsu", "bandwidth")
+DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl")
 
 SOURCES = {
     "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
@@ -999,6 +1284,9 @@ SOURCES = {
     "resize": ("resize.cu", ("gs_resize",), RESIZE_VARIANTS, {}, resize_cases, r"resize|Used"),
     "fast": ("fast.cu", ("gs_fast",), FAST_VARIANTS, {}, fast_cases, r"fast|Used"),
     "otsu": ("otsu.cu", ("gs_otsu",), OTSU_VARIANTS, {}, otsu_hist_cases, r"otsu|Used"),
+    "patches": ("patches.cu", ("gs_orb_moments", "gs_orb_brief"), PATCHES_VARIANTS, {},
+                patches_cases, r"orb_moments|orb_brief|Used"),
+    "ccl": ("ccl.cu", ("gs_ccl",), CCL_VARIANTS, CCL_ABLATIONS, ccl_cases, r"tile|border|flatten|merge|init|Used"),
 }
 # (kernel, library call) pairs that every variant is also timed against in
 # chip_smoke.alternate_windows, variants in order and then in reverse
@@ -1065,14 +1353,20 @@ def build_variants(source, entries, variants, parent):
 
 
 class _Errors:
-    """Stands in for the committed library's ``gs_error_string`` while a variant
-    library (which may not define it) is loaded."""
+    """Stands in for the committed library while a variant library is loaded:
+    the variant's entries, and the committed library's ``gs_error_string`` and
+    every entry the variant's file does not define (a case that runs a whole
+    entry point, such as ``scan``, calls those)."""
 
     def __init__(self, lib, committed):
-        self._lib, self.gs_error_string = lib, committed.gs_error_string
+        self._lib, self._committed = lib, committed
+        self.gs_error_string = committed.gs_error_string
 
     def __getattr__(self, name):
-        return getattr(self._lib, name)
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            return getattr(self._committed, name)
 
 
 def main():
@@ -1124,7 +1418,8 @@ def main():
             torch.cuda.synchronize()
         except (AssertionError, RuntimeError) as e:
             if "CUDA error" in str(e) or name in held:
-                raise  # a fault on the card, or a committed or parent kernel that is wrong
+                # a fault on the card, or a committed or parent kernel that is wrong
+                raise RuntimeError(f"variant {name}: {e}") from e
             failed[name] = f"check: {e}"
             del libs[name]
     _build._lib = committed
@@ -1140,10 +1435,13 @@ def main():
     for turn in (order, order[::-1]):
         for name in turn:
             _build._lib = libs[name]
-            for kernel, (_, fn, _) in cases.items():
-                times[name][kernel].append(timeit(fn) * 1e3)
-                if timed_on_device:
-                    device[name][kernel].append(device_ms_or_none(fn))
+            try:  # each timing synchronizes, so a fault shows within its variant
+                for kernel, (_, fn, _) in cases.items():
+                    times[name][kernel].append(timeit(fn) * 1e3)
+                    if timed_on_device:
+                        device[name][kernel].append(device_ms_or_none(fn))
+            except RuntimeError as e:  # a fault on the card (an ablation is not checked)
+                raise RuntimeError(f"variant {name}: {e}") from e
         for kernel, fns in library.items():
             for label, fn in fns.items():
                 lib_times[kernel, label].append(timeit(fn) * 1e3)

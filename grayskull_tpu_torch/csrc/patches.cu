@@ -28,12 +28,30 @@
 // 500) read 709 disc pixels and 512 samples each, about 10 MB of scattered
 // bytes, mostly from L1/L2, and 0.3 MB of output.  A keypoint's reads are
 // dependent on nothing but its coordinates, so the limit is how many loads
-// are in flight.
+// are in flight, and for K7 how many sectors each load touches.
 //
-// What the design does about it: one warp per keypoint.  In K7 a lane takes a
-// row of the disc (dy = lane - r; r = 15 gives 31 rows) and sums it, and a
-// shuffle reduction adds the rows, so each lane's loads are contiguous bytes
-// of one row.  In K8 a lane takes pair 32 * j + lane of word j, so one
+// What the design does about it.  K7 (redesigned for Hopper): 8 lanes take a
+// disc row, each a 4-byte word of it, so one load instruction of a warp reads
+// four rows as 32 contiguous bytes each.  A row's words are the aligned words
+// around it funnel-shifted (__funnelshift_r) by the row's misalignment, so
+// word j always holds columns x - r + 4j .. x - r + 4j + 3 and its weights
+// depend only on (r, dy, j): int8 dx weights (0 outside the disc) and a mask
+// of ones, which a large block builds once in shared memory while its
+// keypoints' coordinates load, and a lane of a small block computes.  Two dp4a
+// a word give m10 and the row sum, and m01 = sum dy * rowsum; everything stays exact in int32.  When the whole
+// disc lies in the frame, which orb_extract guarantees by clamping, the reads
+// take no bounds test (a word holding a byte of the row is read whole: it
+// lies in the same aligned 4 bytes of the frame's storage as that byte);
+// otherwise each byte is read through pixel() and a read outside the frame
+// gives 0.  A shuffle reduction over the keypoint's lanes adds the partial
+// sums.  The kernel is latency-bound and pays a fixed cost a block, so a call
+// with enough keypoints to give every SM a 1024-thread block takes those,
+// and smaller calls (track's pyramid levels) take 256-thread blocks.  A warp
+// a keypoint, the block sizes and where the weights come from are the fastest
+// of chip_sweep.py --source patches on the H100 (PERF.md), which also carries
+// the alternatives it rejected (2 or 4 keypoints a warp, lanes along a row's
+// columns, multiply-adds in place of dp4a).
+// K8: a lane takes pair 32 * j + lane of word j, so one
 // __ballot_sync builds each word; the lane's eight pairs sit in registers,
 // loaded once, and each warp walks over keypoints in a grid-stride loop.
 // Lane j stores word j, one 32-byte store per keypoint.
@@ -54,32 +72,166 @@ __device__ __forceinline__ int pixel(const uint8_t* __restrict__ f, int x, int y
   return (x >= 0 && x < w && y >= 0 && y < h) ? f[static_cast<size_t>(y) * w + x] : 0;
 }
 
-// Grid ceil(n * k / kWarps), block kThreads; one warp per keypoint.
-__global__ void orb_moments_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
-                                   const int* __restrict__ ys, int* __restrict__ m01,
-                                   int* __restrict__ m10, int n, int h, int w, int k, int r) {
-  const int kp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (kp >= n * k) return;  // the whole warp leaves together
-  const uint8_t* f = imgs + static_cast<size_t>(kp / k) * h * w;
-  const int x = xs[kp], y = ys[kp];
-  int s01 = 0, s10 = 0;
-  for (int dy = lane - r; dy <= r; dy += 32) {
-    int half = r;  // the disc's half-width on this row
-    while (half * half + dy * dy > r * r) --half;
-    int sum = 0, dsum = 0;
-    for (int dx = -half; dx <= half; ++dx) {
-      const int p = pixel(f, x + dx, y + dy, h, w);
-      sum += p;
-      dsum += dx * p;
+// K7's layout: a warp takes a keypoint, and 8 lanes a disc row, a 4-byte word
+// each, so the warp reads 4 rows a step.
+constexpr int kMaxRadius = 20;  // the wrapper's limit (kernels/patches.py:_check_radius)
+constexpr int kDiscRows = 2 * kMaxRadius + 1;
+constexpr int kRowLanes = 8;
+constexpr int kRowsPerStep = 32 / kRowLanes;
+constexpr int kSteps = (kDiscRows + kRowsPerStep - 1) / kRowsPerStep;
+// Blocks of kSmallThreads, or of kLargeThreads (at most 32 registers a thread,
+// so that two fill an SM) once the call has enough keypoints to give every SM
+// one: a large block pays its launch and weight table once for more keypoints.
+constexpr int kSmallThreads = 256;
+constexpr int kLargeThreads = 1024;
+constexpr int kHighWords = 4;  // words 8..10 of a row (3 used) at r > 15
+
+__device__ __forceinline__ int dp4a_us(unsigned a, unsigned b, int c) {
+#if defined(__CUDA_ARCH__)
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  for (int i = 0; i < 4; ++i) {
+    c += static_cast<int>((a >> (8 * i)) & 0xffu) * static_cast<int8_t>((b >> (8 * i)) & 0xffu);
+  }
+  return c;
+#endif
+}
+
+__device__ __forceinline__ int dp4a_uu(unsigned a, unsigned b, int c) {
+#if defined(__CUDA_ARCH__)
+  int d;
+  asm("dp4a.u32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  for (int i = 0; i < 4; ++i) {
+    c += static_cast<int>(((a >> (8 * i)) & 0xffu) * ((b >> (8 * i)) & 0xffu));
+  }
+  return c;
+#endif
+}
+
+// The weights of a disc row's word j (columns x - r + 4j .. x - r + 4j + 3)
+// when r^2 - dy^2 = room: .x the int8 dx of each byte inside the disc (0
+// outside), .y 1 for each byte inside.
+__device__ __forceinline__ uint2 word_weights(int r, int room, int j) {
+  uint2 wt = make_uint2(0u, 0u);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int dx = 4 * j + b - r;
+    if (dx * dx <= room) {
+      wt.x |= (static_cast<unsigned>(dx) & 0xffu) << (8 * b);
+      wt.y |= 1u << (8 * b);
     }
-    s01 += dy * sum;
-    s10 += dsum;
+  }
+  return wt;
+}
+
+// The word of disc row (x - r + 4j .., y + dy) with a read outside the frame 0.
+__device__ __forceinline__ unsigned guarded_word(const uint8_t* __restrict__ f, int x, int y,
+                                                 int h, int w) {
+  unsigned v = 0u;
+  for (int b = 0; b < 4; ++b) v |= static_cast<unsigned>(pixel(f, x + b, y, h, w)) << (8 * b);
+  return v;
+}
+
+// Word j of the row that starts at byte `row` (x - r): the aligned words around
+// it funnel-shifted by its misalignment.  Only words that hold a byte of the
+// row's 2r + 1 are read (`last` is the last of them), so every read is inside
+// the frame when the disc is.
+__device__ __forceinline__ unsigned interior_word(const uint32_t* __restrict__ aligned,
+                                                  unsigned shift, int last, int j) {
+  const unsigned lo = j <= last ? aligned[j] : 0u;
+  const unsigned hi = j + 1 <= last ? aligned[j + 1] : 0u;
+  return __funnelshift_r(lo, hi, shift);
+}
+
+// The row sum and m10 of words c and c + kRowLanes of disc row i.
+template <bool kInterior, bool kWeightTable>
+__device__ __forceinline__ void row_terms(const uint8_t* __restrict__ f, int x, int y, int h,
+                                          int w, int r, int i, int c, int words,
+                                          const uint2 (*low)[kRowLanes],
+                                          const uint2 (*high)[kHighWords], int& sum, int& s10) {
+  unsigned v, vh = 0u;
+  if (kInterior) {
+    const uintptr_t start =
+        reinterpret_cast<uintptr_t>(f + static_cast<size_t>(y + i - r) * w + (x - r));
+    const unsigned mis = static_cast<unsigned>(start & 3u);
+    const uint32_t* aligned = reinterpret_cast<const uint32_t*>(start - mis);
+    const int last = static_cast<int>(mis + 2 * r) >> 2;
+    v = interior_word(aligned, 8u * mis, last, c);
+    if (c + kRowLanes < words) vh = interior_word(aligned, 8u * mis, last, c + kRowLanes);
+  } else {
+    v = guarded_word(f, x - r + 4 * c, y + i - r, h, w);
+    if (c + kRowLanes < words) vh = guarded_word(f, x - r + 4 * (c + kRowLanes), y + i - r, h, w);
+  }
+  const int room = r * r - (i - r) * (i - r);
+  const uint2 wt = kWeightTable ? low[i][c] : word_weights(r, room, c);
+  sum = dp4a_uu(v, wt.y, 0);
+  s10 = dp4a_us(v, wt.x, s10);
+  if (c + kRowLanes < words) {
+    const uint2 wh = kWeightTable ? high[i][c] : word_weights(r, room, c + kRowLanes);
+    sum = dp4a_uu(vh, wh.y, sum);
+    s10 = dp4a_us(vh, wh.x, s10);
+  }
+}
+
+// Grid ceil(n * k / (kThreads / 32)), block kThreads: a warp takes a keypoint,
+// a block kThreads / 32 consecutive ones (in scan order, so their discs share
+// rows in L1).  kWeightTable: the weights come from a shared table the block
+// builds, else each lane computes its own; the table pays off only where a
+// block has many keypoints.
+template <int kThreads, int kMinBlocks, bool kWeightTable>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+orb_moments_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
+                   const int* __restrict__ ys, int* __restrict__ m01, int* __restrict__ m10,
+                   int n, int h, int w, int k, int r) {
+  __shared__ uint2 low[kWeightTable ? kDiscRows : 1][kRowLanes];    // words 0..7 of each row
+  __shared__ uint2 high[kWeightTable ? kDiscRows : 1][kHighWords];  // words 8..10
+  const int lane = threadIdx.x % 32;
+  const int rq = lane / kRowLanes, c = lane % kRowLanes;
+  const int kp = blockIdx.x * (kThreads / 32) + static_cast<int>(threadIdx.x) / 32;
+  const bool valid = kp < n * k;
+  const int x = valid ? xs[kp] : 0, y = valid ? ys[kp] : 0;  // in flight while the table is built
+  const int rows = 2 * r + 1;
+  const int words = (rows + 3) / 4;
+  if (kWeightTable) {
+    for (int e = threadIdx.x; e < rows * (kRowLanes + kHighWords); e += kThreads) {
+      const int i = e / (kRowLanes + kHighWords), j = e % (kRowLanes + kHighWords);
+      const uint2 wt = word_weights(r, r * r - (i - r) * (i - r), j);
+      if (j < kRowLanes) {
+        low[i][j] = wt;
+      } else {
+        high[i][j - kRowLanes] = wt;
+      }
+    }
+    __syncthreads();
+  }
+  if (!valid) return;  // the whole warp leaves together
+  const uint8_t* f = imgs + static_cast<size_t>(kp / k) * h * w;
+  int s01 = 0, s10 = 0;
+  if (x >= r && x + r < w && y >= r && y + r < h) {  // the whole disc is in the frame
+#pragma unroll
+    for (int step = 0; step < kSteps; ++step) {
+      const int i = rq + step * kRowsPerStep;
+      if (i < rows) {
+        int sum;
+        row_terms<true, kWeightTable>(f, x, y, h, w, r, i, c, words, low, high, sum, s10);
+        s01 += (i - r) * sum;
+      }
+    }
+  } else {  // near or past a border: reads outside the frame give 0
+    for (int i = rq; i < rows; i += kRowsPerStep) {
+      int sum;
+      row_terms<false, kWeightTable>(f, x, y, h, w, r, i, c, words, low, high, sum, s10);
+      s01 += (i - r) * sum;
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    s01 += __shfl_down_sync(0xffffffffu, s01, off);
-    s10 += __shfl_down_sync(0xffffffffu, s10, off);
+    s01 += __shfl_xor_sync(0xffffffffu, s01, off);
+    s10 += __shfl_xor_sync(0xffffffffu, s10, off);
   }
   if (lane == 0) {
     m01[kp] = s01;
@@ -132,10 +284,30 @@ extern "C" {
 // imgs: (n, h, w) uint8; x, y: (n, k) int32; m01, m10: (n, k) int32.
 int gs_orb_moments(const void* imgs, const void* x, const void* y, void* m01, void* m10, int n,
                    int h, int w, int k, int radius, void* stream) {
-  const int blocks = (n * k + kWarps - 1) / kWarps;
-  orb_moments_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(imgs), static_cast<const int*>(x), static_cast<const int*>(y),
-      static_cast<int*>(m01), static_cast<int*>(m10), n, h, w, k, radius);
+  if (radius < 0 || radius > kMaxRadius) return cudaErrorInvalidValue;
+  // n * k < 2^28 (the wrapper checks), so the grid fits
+  const int total = n * k;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* f = static_cast<const uint8_t*>(imgs);
+  const int* xs = static_cast<const int*>(x);
+  const int* ys = static_cast<const int*>(y);
+  int* o01 = static_cast<int*>(m01);
+  int* o10 = static_cast<int*>(m10);
+  // keypoints a block; a call with a large block for every SM of this card
+  // takes large blocks (two host lookups, no sync)
+  constexpr int large_keys = kLargeThreads / 32, small_keys = kSmallThreads / 32;
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (total >= sms * large_keys) {
+    orb_moments_kernel<kLargeThreads, 2048 / kLargeThreads, true>
+        <<<(total + large_keys - 1) / large_keys, kLargeThreads, 0, st>>>(f, xs, ys, o01, o10, n,
+                                                                          h, w, k, radius);
+  } else {
+    orb_moments_kernel<kSmallThreads, 1, false>
+        <<<(total + small_keys - 1) / small_keys, kSmallThreads, 0, st>>>(f, xs, ys, o01, o10, n,
+                                                                          h, w, k, radius);
+  }
   return cudaGetLastError();
 }
 

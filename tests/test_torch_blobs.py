@@ -5,10 +5,13 @@ K9's plain version ``ccl_plain``, ``label_components``, ``blobs`` and
 the JAX functions on the same inputs (random frames made with numpy from a
 seed, the adversarial frames of ``tests/test_blobs_contour.py`` and the
 binarized ``document.pgm``), to the JAX Pallas kernel ``ccl_serpentine`` in
-interpret mode, and to the goldens ``blobs_*`` and ``multiblob_*``.
+interpret mode, and to the goldens ``blobs_*`` and ``multiblob_*``.  K9's
+tiled decomposition (``csrc/ccl.cu``) is replayed in numpy and held to the
+same references.
 """
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,12 @@ from tests.test_torch_cuda import host_arrays_on_cpu, snake, spiral  # noqa: F40
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "tests", "golden", "testdata")
 DENSITIES = (0.3, 0.55, 0.6)  # 0.6 is near the site-percolation threshold
+with open(os.path.join(REPO, "grayskull_tpu_torch", "csrc", "ccl.cu")) as _f:
+    _CCL_SOURCE = _f.read()
+# K9's committed tile (kTileH x kTileW), and one small enough that components
+# cross many tile borders
+CCL_TILES = [tuple(int(re.search(rf"constexpr int {name} = (\d+);", _CCL_SOURCE).group(1))
+                   for name in ("kTileH", "kTileW")), (4, 16)]
 
 
 def _random(shape, density, seed):
@@ -85,6 +94,172 @@ def test_ccl_document_and_batch(document_binary):
     np.testing.assert_array_equal(got[0], want)
     np.testing.assert_array_equal(got[1], np.asarray(jax_label_components(frames[1])))
     assert (got[2] == -1).all()
+
+
+def _chunk_masks(frame, tile_h, tile_w):
+    """K9's 16-bit foreground masks of every 16 pixels of each row of the frame
+    padded with background to whole tiles, by the 4-byte word trick of the
+    16-byte-load path: bit 7 of byte b of ``v & 0x80808080`` moves to bit 28 + b
+    of ``v * 0x00204081``.  Held to the byte path's masks."""
+    h, w = frame.shape
+    hp, wp = -(-h // tile_h) * tile_h, -(-w // tile_w) * tile_w
+    pad = np.zeros((hp, wp), np.uint8)
+    pad[:h, :w] = frame
+    words = pad.view("<u4").astype(np.uint64)
+    nib = (((words & 0x80808080) * 0x00204081) & 0xFFFFFFFF) >> 28
+    nib = nib.reshape(hp, wp // 16, 4).astype(np.int64)
+    masks = nib[..., 0] | nib[..., 1] << 4 | nib[..., 2] << 8 | nib[..., 3] << 12
+    by_bytes = ((pad >= 128).reshape(hp, wp // 16, 16) << np.arange(16)).sum(-1)
+    np.testing.assert_array_equal(masks, by_bytes)
+    return masks
+
+
+def _run_start(row, c):
+    """``run_start``: one past the highest background bit left of column c."""
+    j = c // 16
+    z = ~row[j] & ((1 << (c % 16)) - 1) & 0xFFFF
+    while z == 0:
+        j -= 1
+        if j < 0:
+            return 0
+        z = ~row[j] & 0xFFFF
+    return j * 16 + int(z).bit_length()  # 32 - __clz(z)
+
+
+def _find(parent, p):
+    """``find_root`` with path halving, on a dict or an array of links."""
+    cur = parent[p]
+    if cur == p:
+        return p
+    prev = p
+    while cur > (nxt := parent[cur]):
+        parent[prev] = nxt
+        prev, cur = cur, nxt
+    return cur
+
+
+def _unite(parent, a, b):
+    ra, rb = _find(parent, parent[a]), _find(parent, parent[b])  # a and b keep their links
+    if ra != rb:  # one thread at a time: the atomicCAS hook always lands
+        parent[max(ra, rb)] = min(ra, rb)
+
+
+def _ccl_replay(frame, tile_h, tile_w):
+    """``csrc/ccl.cu`` in numpy on one frame: the tile pass (run starts and
+    overlap segments by bit tricks on the 16-bit masks, a union-find of tile
+    indices, pointer jumping over the run starts, each pixel's tile root as a
+    frame raster index), the border unions in the frame's labels, and the
+    flatten by run pieces of 16-pixel chunks, each judged by its last pixel's
+    link."""
+    h, w = frame.shape
+    masks = _chunk_masks(frame, tile_h, tile_w)
+    chunks = tile_w // 16
+    q = np.arange(masks.shape[1])[None, :]
+    r = np.arange(masks.shape[0])[:, None]
+    left = np.where(q % chunks > 0, np.roll(masks, 1, axis=1) >> 15, 0)
+    up = np.where(r % tile_h > 0, np.roll(masks, 1, axis=0), 0)
+    up_left = np.where((q % chunks > 0) & (r % tile_h > 0), np.roll(up, 1, axis=1) >> 15, 0)
+    starts = masks & ~((masks << 1) | left) & 0xFFFF
+    ov = masks & up
+    segs = ov & ~((ov << 1) | (left & up_left)) & 0xFFFF
+    label = np.full(h * w, -1, np.int64)
+    for ty in range(0, masks.shape[0], tile_h):
+        for tx in range(0, masks.shape[1] * 16, tile_w):
+            bits = masks[ty:ty + tile_h, tx // 16:tx // 16 + chunks]
+            if not bits.any():
+                continue
+            parent = {}  # tile index rr * tile_w + c
+            for rr, qq in zip(*np.nonzero(starts[ty:ty + tile_h, tx // 16:tx // 16 + chunks])):
+                m = int(starts[ty + rr, tx // 16 + qq])
+                for i in range(16):
+                    if m >> i & 1:
+                        parent[rr * tile_w + qq * 16 + i] = rr * tile_w + qq * 16 + i
+            for rr, qq in zip(*np.nonzero(segs[ty:ty + tile_h, tx // 16:tx // 16 + chunks])):
+                m = int(segs[ty + rr, tx // 16 + qq])
+                for i in range(16):
+                    if m >> i & 1:
+                        c = qq * 16 + i
+                        _unite(parent, rr * tile_w + _run_start(bits[rr], c),
+                               (rr - 1) * tile_w + _run_start(bits[rr - 1], c))
+            jumped = True
+            while jumped:  # rounds of parent[s] = parent[parent[s]] over the run starts
+                jumped = False
+                for s_ in list(parent):
+                    up = parent[s_]
+                    if parent[up] != up:
+                        parent[s_] = parent[up]
+                        jumped = True
+            for rr, qq in zip(*np.nonzero(bits)):
+                m = int(bits[rr, qq])
+                for i in range(16):
+                    if m >> i & 1:
+                        c = qq * 16 + i
+                        lr = parent[rr * tile_w + _run_start(bits[rr], c)]
+                        label[(ty + rr) * w + tx + c] = (ty + lr // tile_w) * w + tx + lr % tile_w
+    fg = (frame >= 128).ravel()
+    for ty in range(0, h, tile_h):
+        for tx in range(0, w, tile_w):
+            pairs = []
+            if ty > 0:
+                pairs += [(ty * w + x, ty * w + x - w) for x in range(tx, min(tx + tile_w, w))]
+            if tx > 0:
+                pairs += [(y * w + tx, y * w + tx - 1) for y in range(ty, min(ty + tile_h, h))]
+            for p, nb in pairs:
+                if fg[p] and fg[nb]:
+                    _unite(label, p, nb)
+    for ty in range(0, h, tile_h):
+        for tx in range(0, w, tile_w):
+            for yy, qq in zip(*np.nonzero(masks[ty:ty + tile_h, tx // 16:tx // 16 + chunks])):
+                m = int(masks[ty + yy, tx // 16 + qq])
+                pieces = m & ~(m << 1)
+                while pieces:
+                    i0 = (pieces & -pieces).bit_length() - 1
+                    pieces &= pieces - 1
+                    run = m >> i0
+                    length = ((~run) & -(~run)).bit_length() - 1  # __ffs(~run) - 1
+                    p = (ty + yy) * w + tx + qq * 16 + i0
+                    link = label[p + length - 1]
+                    root = label[link]
+                    if root == link:
+                        continue
+                    while label[root] != root:  # a walk that writes nothing
+                        root = label[root]
+                    label[p:p + length] = root
+    return label.reshape(h, w).astype(np.int32)
+
+
+def _ccl_replay_cases(document_binary):
+    rng = np.random.default_rng(31)
+    th, tw = CCL_TILES[0]
+    cases = {"snake": snake(), "spiral": spiral(40, 128),
+             "all foreground": np.full((70, 300), 255, np.uint8),
+             "empty": np.zeros((33, 129), np.uint8),
+             "1x300": _random((1, 300), 0.6, 32), "300x1": _random((300, 1), 0.6, 33),
+             "one past a tile": _random((th + 1, tw + 1), 0.55, 34),
+             "document": document_binary}
+    for i, d in enumerate(DENSITIES):
+        cases[f"density {d}"] = _random((40, 200), d, 35 + i)
+    return cases
+
+
+@pytest.mark.parametrize("tile", CCL_TILES)
+@pytest.mark.parametrize("case", ["snake", "spiral", "density 0.3", "density 0.55", "density 0.6",
+                                  "all foreground", "empty", "1x300", "300x1", "one past a tile",
+                                  "document"])
+def test_ccl_tile_decomposition_replayed(document_binary, tile, case):
+    """K9's tiles, border unions and flatten, replayed,
+    equal ``ccl_plain``, JAX ``label_components`` and, on the snake and the
+    spiral, ``ccl_serpentine`` in interpret mode."""
+    img = _ccl_replay_cases(document_binary)[case]
+    want = _ccl(img)
+    np.testing.assert_array_equal(want, np.asarray(jax_label_components(img)))
+    if case in ("snake", "spiral"):
+        h, w = img.shape
+        l0 = np.full((-(-h // 8) * 8, -(-w // 128) * 128), 2**30, np.int32)
+        l0[:h, :w] = np.where(img >= 128, np.arange(h * w, dtype=np.int32).reshape(h, w), 2**30)
+        fixpoint, _ = ccl_serpentine(jnp.asarray(l0[None]), interpret=True)
+        np.testing.assert_array_equal(want, np.where(img >= 128, np.asarray(fixpoint)[0, :h, :w], -1))
+    np.testing.assert_array_equal(_ccl_replay(img, *tile), want, err_msg=f"{case} tile {tile}")
 
 
 def test_ccl_wrapper_checks_its_input():

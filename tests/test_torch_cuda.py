@@ -542,6 +542,73 @@ def test_ccl_spiral_and_full_frames_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 67, 129), (2, 67, 257), (1, 67, 1023), (65537, 4, 8)])
+def test_ccl_past_tile_widths_and_frame_grid_on_card(cuda_device, shape):
+    """K9 at widths one past one and two of its 128-wide tiles and odd, and on
+    65,537 frames (past grid.y's 65,535)."""
+    rng = np.random.default_rng(51)
+    for density in (0.3, 0.55, 0.6):
+        imgs = torch.from_numpy(((rng.random(shape) < density) * 255).astype(np.uint8))
+        assert torch.equal(K.ccl(imgs.to(cuda_device)).cpu(), K.ccl_plain(imgs)), density
+
+
+@pytest.mark.cuda
+def test_ccl_comb_across_every_tile_border_on_card(cuda_device):
+    comb = np.zeros((520, 1000), np.uint8)
+    comb[:, ::2] = 255
+    comb[::37, :] = 255
+    bars_removed = np.where(np.arange(520)[:, None] % 37 == 0, 0, comb).astype(np.uint8)
+    frames = torch.from_numpy(np.stack([comb, bars_removed])).to(cuda_device)
+    got = K.ccl(frames)
+    assert torch.equal(got, K.ccl_plain(frames))
+    assert int(got[0].max()) == 0  # one component, every tile border crossed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0, 1, 15, 20])
+def test_orb_moments_every_x_mod_4_and_edges_on_card(cuda_device, r):
+    """K7's words on a frame of odd width (every row misalignment), keypoints
+    at every x mod 4 and at, near and past each border."""
+    rng = np.random.default_rng(44)
+    h, w = 61, 203
+    imgs = _frames((2, h, w), 45, cuda_device)
+    pts = [(0, 0), (w - 1, h - 1), (r, r), (w - 1 - r, h - 1 - r), (r - 1, 30), (w - r, 30),
+           (100, r - 1), (100, h - r), (-1, -1), (w, h), (-40, 30), (w + 25, 3)]
+    pts += [(24 + i, 25 + i % 5) for i in range(16)] + [(164 + i, 21 + i % 7) for i in range(8)]
+    xs = np.array([p[0] for p in pts] + rng.integers(0, w, 20).tolist(), np.int32)
+    ys = np.array([p[1] for p in pts] + rng.integers(0, h, 20).tolist(), np.int32)
+    x = torch.from_numpy(np.stack([xs, xs[::-1]])).to(cuda_device)
+    y = torch.from_numpy(np.stack([ys, ys[::-1]])).to(cuda_device)
+    for a, b in zip(K.orb_moments(imgs, x, y, r), K.orb_moments_plain(imgs, x, y, r)):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0, 1, 15, 20])
+def test_orb_moments_large_call_every_x_mod_4_and_edges_on_card(cuda_device, r):
+    """K7's instance for calls with a 1024-thread block for every SM (weights
+    from the block's shared table): 2 x 2,500 keypoints on a frame of odd width,
+    at every x mod 4, at, near and past each border, and a third of them with
+    the whole r = 20 disc inside."""
+    rng = np.random.default_rng(46)
+    h, w, k = 61, 203, 2500
+    imgs = _frames((2, h, w), 47, cuda_device)
+    pts = [(0, 0), (w - 1, h - 1), (r, r), (w - 1 - r, h - 1 - r), (r - 1, 30), (w - r, 30),
+           (100, r - 1), (100, h - r), (-1, -1), (w, h), (-40, 30), (w + 25, 3)]
+    pts += [(24 + i, 25 + i % 5) for i in range(16)] + [(164 + i, 21 + i % 7) for i in range(8)]
+    inner = (k - len(pts)) // 3
+    xs = np.concatenate([[p[0] for p in pts], rng.integers(20, w - 20, inner),
+                         rng.integers(-25, w + 25, k - len(pts) - inner)]).astype(np.int32)
+    ys = np.concatenate([[p[1] for p in pts], rng.integers(20, h - 20, inner),
+                         rng.integers(-25, h + 25, k - len(pts) - inner)]).astype(np.int32)
+    x = torch.from_numpy(np.stack([xs, xs[::-1]]).copy()).to(cuda_device)
+    y = torch.from_numpy(np.stack([ys, ys[::-1]]).copy()).to(cuda_device)
+    assert x.numel() >= torch.cuda.get_device_properties(cuda_device).multi_processor_count * 32
+    for a, b in zip(K.orb_moments(imgs, x, y, r), K.orb_moments_plain(imgs, x, y, r)):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_quad_warp_matches_plain_on_card(cuda_device):
     src = _frames((2, 300, 260), 51, cuda_device)
     quads = [[[20, 15], [240, 30], [230, 280], [10, 290]], [[0, 0], [259, 0], [259, 299], [0, 299]],

@@ -6,6 +6,8 @@ patch, moment and rBRIEF plain versions (K7, K8), ``compute_orientation``,
 ``hamming_distance``, ``match_orb``, ``downsample`` and ``libm32`` are held to
 the JAX functions on the same numpy inputs, made from a seed.  The Pallas
 kernels run in interpret mode, as ``tests/test_features.py`` runs them.
+K6's and K7's word-level arithmetic (``csrc/fast.cu``, ``csrc/patches.cu``) is
+replayed in numpy and held to the plain versions and the JAX kernels.
 
 The tolerance is 0: every output is an integer, a bool, or a float32 compared
 by its bits.  One exception, in the fast trig mode only: the JAX package may
@@ -415,6 +417,116 @@ def test_extract_patches_plain_vs_pallas_edge_keypoints():
                                   interpret=True)
     assert got.shape == (2, 64, 48, 48) and got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _bytes_of(words):
+    return [(words >> (8 * b)) & 0xFF for b in range(4)]
+
+
+def _dp4a(a, b, signed_b):
+    """dp4a of the unsigned bytes of ``a`` and the (int8 or uint8) bytes of ``b``."""
+    total = 0
+    for pa, pb in zip(_bytes_of(a), _bytes_of(b)):
+        total = total + pa * (((pb + 128) % 256) - 128 if signed_b else pb)
+    return total
+
+
+def _k7_row_weights(r):
+    """``word_weights`` for every disc row i (dy = i - r) and word j: the packed
+    int8 dx weights of the bytes with dx^2 <= r^2 - dy^2, and their mask of ones."""
+    wx = np.zeros((2 * r + 1, 12), np.int64)
+    ones = np.zeros_like(wx)
+    for i in range(2 * r + 1):
+        room = r * r - (i - r) ** 2
+        for j in range(12):
+            for b in range(4):
+                dx = 4 * j + b - r
+                if dx * dx <= room:
+                    wx[i, j] |= (dx & 0xFF) << (8 * b)
+                    ones[i, j] |= 1 << (8 * b)
+    return wx, ones
+
+
+def _orb_moments_replay(imgs, xs, ys, r, offset):
+    """``csrc/patches.cu``'s K7 in numpy, lane by lane: a keypoint's warp
+    splits as 8 lanes a row; lane (rq, c) takes rows rq, rq + 4, ... and words
+    c and c + 8.  Inside the frame a word is two
+    aligned 4-byte words of the batch (which starts ``offset`` bytes past a
+    word boundary) funnel-shifted by the row's misalignment, reading only words
+    that hold a byte of the row; near a border it is four bounds-tested bytes.
+    Two dp4a a word against the weight table, m01 = sum dy * rowsum."""
+    n, h, w = imgs.shape
+    buf = np.zeros(-(-(offset + imgs.size) // 4) * 4, np.uint8)
+    buf[offset:offset + imgs.size] = imgs.ravel()
+    words = buf.view("<u4").astype(np.int64)
+    wx, ones = _k7_row_weights(r)
+    rows, nw = 2 * r + 1, (2 * r + 4) // 4
+    frame = np.arange(n)[:, None] + np.zeros_like(xs)
+    x, y, f = xs.astype(np.int64), ys.astype(np.int64), frame.astype(np.int64)
+    inside = (x >= r) & (x + r < w) & (y >= r) & (y + r < h)
+
+    def pixel(xx, yy):
+        ok = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        return np.where(ok, imgs[f, np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)], 0).astype(np.int64)
+
+    s01 = np.zeros(xs.shape, np.int64)
+    s10 = np.zeros(xs.shape, np.int64)
+    for lane in range(32):
+        rq, c = divmod(lane, 8)
+        for i in range(rq, rows, 4):
+            start = offset + f * h * w + (y + i - r) * w + (x - r)
+            mis = start & 3
+            aligned = np.where(inside, (start - mis) // 4, 0)
+            last = (mis + 2 * r) >> 2
+            rowsum = np.zeros(xs.shape, np.int64)
+            for j in (c, c + 8):
+                if j >= nw:
+                    continue
+                lo = np.where(inside & (j <= last), words[np.clip(aligned + j, 0, len(words) - 1)], 0)
+                hi = np.where(inside & (j + 1 <= last),
+                              words[np.clip(aligned + j + 1, 0, len(words) - 1)], 0)
+                v = ((hi << 32 | lo) >> (8 * mis)) & 0xFFFFFFFF
+                guarded = sum(pixel(x - r + 4 * j + b, y + i - r) << (8 * b) for b in range(4))
+                v = np.where(inside, v, guarded)
+                rowsum = rowsum + _dp4a(v, ones[i, j], False)
+                s10 = s10 + _dp4a(v, wx[i, j], True)
+            s01 = s01 + (i - r) * rowsum
+    return s01.astype(np.int32), s10.astype(np.int32)
+
+
+@pytest.mark.parametrize("r", [0, 1, 15, 20])
+@pytest.mark.parametrize("shape,offset", [((2, 64, 200), 0), ((2, 47, 61), 3)])
+def test_orb_moments_word_replay_vs_plain_and_jax(r, shape, offset):
+    """K7's words, funnel shifts and dp4a weights, replayed, equal
+    ``orb_moments_plain`` and JAX's Pallas patches (interpret mode) reduced by
+    the disc, on keypoints at every x mod 4 (and, with the odd width and the
+    batch 3 bytes off a word, at every row misalignment) and at, near and past
+    each border."""
+    n, h, w = shape
+    rng = np.random.default_rng(73 + r)
+    imgs = rng.integers(0, 256, shape, dtype=np.uint8)
+    xs, ys = _edge_points(h, w, rng, 8)
+    near = [(r, r), (w - 1 - r, h - 1 - r), (r - 1, h // 2), (w - r, h // 2), (w // 2, r - 1),
+            (w // 2, h - r), (-1, -1), (w, h), (-40, h // 2), (w + 25, 3)]
+    every_mod = [(24 + i, 22 + i % 3) for i in range(8)]
+    extra = np.array(near + every_mod, np.int32)
+    xs = np.ascontiguousarray(np.concatenate([xs, np.stack([extra[:, 0], extra[::-1, 0]])], 1))
+    ys = np.ascontiguousarray(np.concatenate([ys, np.stack([extra[:, 1], extra[::-1, 1]])], 1))
+    m01, m10 = _orb_moments_replay(imgs, xs, ys, r, offset)
+    p01, p10 = K.orb_moments_plain(torch.from_numpy(imgs), torch.from_numpy(xs),
+                                   torch.from_numpy(ys), r)
+    np.testing.assert_array_equal(m01, p01.numpy())
+    np.testing.assert_array_equal(m10, p10.numpy())
+    patches = np.asarray(extract_patches_batched(jnp.asarray(imgs), jnp.asarray(xs),
+                                                 jnp.asarray(ys), interpret=True)).astype(np.int64)
+    dy, dx = np.mgrid[-20:28, -20:28]
+    disc = dx * dx + dy * dy <= r * r
+    # the Pallas helper clips a patch's start into its padded frame, so it
+    # keeps the zero-padding contract for keypoints inside the frame only (its
+    # callers clamp: features.py:650-669)
+    ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    np.testing.assert_array_equal(m01[ok], (patches * dy * disc).sum((-2, -1))[ok])
+    np.testing.assert_array_equal(m10[ok], (patches * dx * disc).sum((-2, -1))[ok])
 
 
 def test_orb_kernels_plain_match_their_wrappers_and_each_other():
