@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA Hopper card::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It builds the port's CUDA kernels from ``grayskull_tpu_torch/csrc`` with
 ``nvcc``, holds each kernel bit for bit to its plain PyTorch version on the
@@ -49,7 +49,9 @@ counts set to 0 just before it and read just after:
 Then it times the paths with CUDA events, profiles preprocess, detect_faces,
 orb_extract, track, the scanner, config #2, the resize and the sharded
 preprocess (``torch.profiler``: device time by kernel and op, idle share, host
-enqueue time), takes K6's, K7's, K8's and K9's device time from the profiler, and
+enqueue time), takes K4's, K6's, K7's, K8's and K9's device time from the
+profiler (K8 also at each of ``track``'s six calls; with ``--parent DIR``, K4
+and K8 of DIR's ``csrc/`` in turns with the committed ones), and
 measures K5's real work: each window's exit stage on two faces frames (the
 plain version with the cascade cut to its first s stages), the weaks a window
 runs and the divergence of 32 neighbouring windows, from which K5's bound is
@@ -65,7 +67,9 @@ and the card's ``nvidia-smi`` name and power limit, and the last line is
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -88,6 +92,8 @@ from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.kernels.integral import u32_to_int64
 from grayskull_tpu_torch.kernels.warp import warp_grid
 from grayskull_tpu_torch.ops.lbp import _grid_plan
+from grayskull_tpu_torch.ops.pixel import downsample
+from grayskull_tpu_torch.pipelines.orb import pyramid_levels
 from grayskull_tpu_torch.profiling import timeit
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -105,6 +111,14 @@ FACES_N, FACES_H, FACES_W, FACES_STEP, FACES_CAP = 32, 480, 640, 1, 100
 LADDER = (1.2, 1.0, 4.0)  # scale_factor, min_scale, max_scale
 INTEGRAL_SHAPES = [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 17, 129), (32, 480, 640),
                    (1, 4200, 4200)]  # the last is all 255s: its sums pass 2^32
+# K4's bands of 16 rows and threads of 4 columns in blocks of up to 1024:
+# heights one short of, at and past one and two bands, widths around a
+# thread's 4 columns and a block's 1024, one row, one column, the shard of a
+# (1, 4) mesh; and frames that start 1 .. 4 bytes into their buffer (the byte path)
+INTEGRAL_EDGE_SHAPES = [(2, 15, 64), (2, 16, 64), (2, 17, 64), (1, 31, 8), (1, 32, 8), (1, 33, 3),
+                        (3, 1, 1), (1, 1, 1025), (1, 40, 1), (1, 9, 2), (1, 9, 5), (1, 9, 15),
+                        (1, 9, 17), (2, 70, 1024), (1, 70, 1028), (1, 33, 2049), (32, 120, 640)]
+INTEGRAL_UNALIGNED = ((2, 65, 640), (3, 33, 129))
 KERNELS = {
     "blur_hist": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/preproc.cu",
                   "replaces": "grayskull_tpu/kernels/preproc.py:273",
@@ -312,6 +326,64 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
                          check=True).stdout
     return out.strip().splitlines()[0].strip()
+
+
+class WithEntries:
+    """Stands in for the committed library while another library is loaded: the
+    other library's entries, and the committed library's ``gs_error_string`` and
+    every entry the other library does not define (a case that runs a whole
+    entry point, such as ``scan``, calls those)."""
+
+    def __init__(self, lib, committed):
+        self._lib, self._committed = lib, committed
+        self.gs_error_string = committed.gs_error_string
+
+    def __getattr__(self, name):
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            return getattr(self._committed, name)
+
+
+PARENT_SOURCES = ("integral.cu", "patches.cu")  # K4's and K8's files (K7 shares the second)
+
+
+def parent_library(parent):
+    """The kernels of PARENT_SOURCES from ``parent``, an earlier commit's tree (for
+    example ``git archive`` of it unpacked under ``build/``), built like the
+    committed ones into ``_build/parent/`` and loaded beside them; None without one."""
+    if parent is None:
+        return None
+    out = _build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    srcs = [os.path.join(parent, "grayskull_tpu_torch", "csrc", f) for f in PARENT_SOURCES]
+    objs = [out / f.replace(".cu", ".o") for f in PARENT_SOURCES]
+    _build._run_all([_build.compile_command(s, o) for s, o in zip(srcs, objs)])
+    path = out / "libparent.so"
+    _build._run_all([_build.link_command(objs, path)])
+    lib = ctypes.CDLL(str(path))
+    for name in ("gs_integral", "gs_orb_moments", "gs_orb_brief"):
+        fn = getattr(lib, name)
+        fn.argtypes = _build._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return WithEntries(lib, _build.library())
+
+
+def device_turns(fn, parent):
+    """``fn``'s device ms (``device_ms``) with the committed kernels and, given a
+    ``parent`` library, with its kernels too, in turns (parent, committed,
+    committed, parent): (committed ms, parent ms or None)."""
+    if parent is None:
+        return device_ms(fn), None
+    committed = _build.library()
+    ours, theirs = [], []
+    try:
+        for lib in (parent, committed, committed, parent):
+            _build._lib = lib
+            (theirs if lib is parent else ours).append(device_ms(fn))
+    finally:
+        _build._lib = committed
+    return statistics.fmean(ours), statistics.fmean(theirs)
 
 
 def lena_batch(n, h, w, roll=13):
@@ -567,6 +639,15 @@ def phase_faces_kernels(chk, rng, dev):
     wrap_corner = int(u32_to_int64(got[0, -1, -1]))
     if wrap_corner != (255 * 4200 * 4200) % 2**32:
         raise AssertionError(f"integral of the 255 frame ends in {wrap_corner}")
+    for shape in INTEGRAL_EDGE_SHAPES:
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        chk.same("integral", K.integral(imgs), K.integral_plain(imgs), f"{shape}")
+    for shape in INTEGRAL_UNALIGNED:
+        for off in (1, 2, 3, 4):
+            imgs = unaligned(shape, off, rng, dev)
+            chk.same("integral", K.integral(imgs), K.integral_plain(imgs), f"{shape} offset {off}")
+    odd = torch.from_numpy(lena_batch(FACES_N + 1, FACES_H - 1, FACES_W - 1)).to(dev)[1:]
+    chk.same("integral", K.integral(odd), K.integral_plain(odd), "[1:] of 33 frames of 479x639")
 
     cascade = gt.load_frontalface()
     ii = K.integral(torch.from_numpy(lena_batch(2, FACES_H, FACES_W, roll=7)).to(dev))
@@ -619,6 +700,9 @@ def phase_faces_kernels(chk, rng, dev):
                      f"synthetic scale={scale} step={step}")
     torch.cuda.synchronize()
     emit("faces_kernels_vs_plain", ok=True, integral_shapes=[list(s) for s in INTEGRAL_SHAPES],
+         integral_edge_shapes=[list(s) for s in INTEGRAL_EDGE_SHAPES],
+         integral_unaligned=[[list(s), "offsets 1-4"] for s in INTEGRAL_UNALIGNED]
+         + [[FACES_N, FACES_H - 1, FACES_W - 1], "[1:] of a batch"],
          wrap_corner=wrap_corner, lena_hits=hits,
          edge_cases=["lbp_window at the four corners of the first and last scale",
                      "all pass", "all fail at stage 0", "2x30x40", "2x97x200 steps 1-3"],
@@ -728,7 +812,7 @@ def phase_faces_work(batch):
     return work
 
 
-def phase_faces_timing(batch, card, work):
+def phase_faces_timing(batch, card, work, parent=None):
     cascade = gt.load_frontalface()
     plan = _grid_plan(cascade, FACES_H, FACES_W, *LADDER, FACES_STEP)
     nwin = sum(ny * nx for *_, ny, nx in plan)
@@ -769,6 +853,18 @@ def phase_faces_timing(batch, card, work):
             "none: no PyTorch call evaluates an LBP cascade"),
     }
     times["lbp_eval_scale"]["bound_ms_stage0"] = ops_ms(weak_ops(FACES_N * nwin * stage0))
+    # K4 by the profiler, against the parent's in turns when given; two cumsum
+    # calls as a yardstick (no one PyTorch call computes the 2-D prefix sum)
+    ii_ms, ii_parent_ms = device_turns(lambda: K.integral(batch), parent)
+
+    def two_cumsums():
+        return torch.cumsum(torch.cumsum(batch, -1, dtype=torch.int32), -2)
+    times["integral"].update(
+        device_ms=ii_ms, parent_device_ms=ii_parent_ms,
+        two_call_yardstick_ms=timeit(two_cumsums) * 1e3,
+        two_call_yardstick_device_ms=device_ms(two_cumsums),
+        two_call_yardstick="torch.cumsum(torch.cumsum(x, -1, dtype=torch.int32), -2): two "
+                           "calls, int32, not the one-call library_ms")
     # the same launches with the cascade cut to stage 0: the fixed part and stage 0
     cut = first_stages(cascade, 1)
     times["lbp_eval_scale"]["stage0_only_ms"] = timeit(
@@ -890,6 +986,28 @@ def phase_orb_kernels(chk, rng, dev):
             chk.same("orb_moments", a, b, f"{lx.numel()} keypoints, width 203, r={r} {what}")
     chk.same("orb_brief", K.orb_brief(imgs, xs, ys, sin, cos),
              K.orb_brief_plain(imgs, xs, ys, sin, cos), "edge keypoints")
+    # K8's window: every x mod 4 and every row misalignment (width 203, batches
+    # that start 1 .. 3 bytes into their buffer), at, near and past the borders
+    ma = np.concatenate([special, rng.uniform(-np.pi, np.pi, mx.shape[1] - len(special))])
+    ma = torch.from_numpy(np.stack([ma, ma[::-1]]).astype(np.float32)).to(dev)
+    ms, mc = libm32.sinf(ma), libm32.cosf_like_reference(ma)
+    for off in (0, 1, 2, 3):
+        frames = unaligned((2, 61, 203), off, rng, dev) if off else odd
+        chk.same("orb_brief", K.orb_brief(frames, mx, my, ms, mc),
+                 K.orb_brief_plain(frames, mx, my, ms, mc),
+                 f"every x mod 4, width 203, offset {off}")
+    # sin and cos off the unit circle: endpoints outside the 41 x 41 window read
+    # as the 48 x 48 patch does
+    scale = torch.tensor([1.0, 1.45, 0.5, 1.02], device=dev).repeat(k // 4 + 1)[:k]
+    chk.same("orb_brief", K.orb_brief(imgs, xs, ys, sin * scale, cos * scale.flip(0)),
+             K.orb_brief_plain(imgs, xs, ys, sin * scale, cos * scale.flip(0)),
+             "sin and cos off the unit circle")
+    # a call past the grid's cap: warps walk over more than one keypoint
+    la = torch.from_numpy(rng.uniform(-np.pi, np.pi, (2, 2500)).astype(np.float32)).to(dev)
+    bx, by = large_keypoint_set(rng, mx, my, 61, 203, 2500)
+    chk.same("orb_brief", K.orb_brief(odd, bx, by, libm32.sinf(la), libm32.cosf_like_reference(la)),
+             K.orb_brief_plain(odd, bx, by, libm32.sinf(la), libm32.cosf_like_reference(la)),
+             f"{bx.numel()} keypoints, width 203")
     # the main path's shapes: 16 frames of 640x480, their 500 keypoints and real angles
     batch = torch.from_numpy(lena_batch(ORB_N, ORB_H, ORB_W, roll=5)).to(dev)
     kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
@@ -1224,10 +1342,12 @@ def phase_scan_path(chk, dev):
     return batch, corners, launches
 
 
-def profile_calls(fn, *args, calls=10):
+def profile_calls(fn, *args, calls=10, sessions=3):
     """Device time per call by kernel and by the PyTorch op that launched it
     (over ``calls`` calls, device events only), the CUDA-event time and the
-    host's enqueue time of one call, and the idle share 1 - busy / timed."""
+    host's enqueue time of one call, and the idle share 1 - busy / timed.  A
+    profiler session that records no device events is run again, up to
+    ``sessions`` in all."""
     from torch.profiler import ProfilerActivity, profile
 
     timed = timeit(fn, *args)
@@ -1236,17 +1356,20 @@ def profile_calls(fn, *args, calls=10):
     fn(*args)
     enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_device:
+            break
+    else:
+        raise AssertionError(f"the profiler saw no device time in {sessions} sessions")
     by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    for e in on_device:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     busy = sum(by_kernel.values())
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
     by_op = [(e.key, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
              if e.key.startswith("aten::") and e.self_device_time_total > 0]
     return {"timed_ms": timed * 1e3, "enqueue_ms": enqueue * 1e3, "device_busy_ms": busy,
@@ -1538,22 +1661,63 @@ def phase_dense_timing(batch, binary, card):
     return times
 
 
-def phase_orb_device_time(frames, times, card):
-    """K6's, K7's and K8's device time per call from the profiler: their
-    CUDA-event times over back-to-back calls read the host's launch rate."""
-    batch = frames[0]
-    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
-    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
-    sin, cos = libm32.sinf(kps.angle), libm32.cosf_like_reference(kps.angle)
+def track_levels(tmpl, scene):
+    """The frames and keypoints of ``track``'s calls of K7 and K8: the template's
+    and the scene's pyramid levels, each through ``orb_extract`` with track's caps
+    (833 keypoints a level, 2,500 at the last); (label, frames, table) each."""
+    out = []
+    for name, frame in (("template", tmpl), ("scene", scene)):
+        cur = frame[None]
+        levels = pyramid_levels(cur.shape[-2:])
+        for lvl in range(len(levels)):
+            if lvl:
+                cur = downsample(cur)
+            cap = TRACK_KPS if lvl == len(levels) - 1 else TRACK_KPS // len(levels)
+            out.append((f"{name}_{cur.shape[-2]}x{cur.shape[-1]}", cur,
+                        gt.orb_extract(cur, cap, ORB_THR)))
+    return out
+
+
+def brief_args(frames, table):
+    """K8's inputs as ``orb_extract`` makes them from its table: the frames, the
+    coordinates clamped 15 pixels inside the frame, the angles' sin and cos."""
+    h, w = frames.shape[-2:]
+    return (frames, table.x.clamp(15, w - 16), table.y.clamp(15, h - 16),
+            libm32.sinf(table.angle), libm32.cosf_like_reference(table.angle))
+
+
+def brief_bound_ms(frames, nk):
+    """K8's bound: the frames read once, 16 B in and 32 B out a keypoint; about 12
+    operations a pair (rotation, rounding, 2 reads, a compare), 256 pairs."""
+    return kernel_entry(None, None, frames.numel() + 48 * nk, 12 * 256 * nk)["bound_ms"]
+
+
+def phase_orb_device_time(frames, times, card, parent=None):
+    """K6's, K7's and K8's device time per call from the profiler (their
+    CUDA-event times over back-to-back calls read the host's launch rate), and
+    K8's at each of track's six calls; K8 against the parent's in turns when given."""
+    batch, tmpl, scene, _ = frames
+    args = brief_args(batch, gt.orb_extract(batch, ORB_CAP, ORB_THR))
     dev = {"fast": device_ms(lambda: K.fast(batch, ORB_THR)),
-           "orb_moments": device_ms(lambda: K.orb_moments(batch, sx, sy)),
-           "orb_brief": device_ms(lambda: K.orb_brief(batch, sx, sy, sin, cos))}
+           "orb_moments": device_ms(lambda: K.orb_moments(*args[:3]))}
+    dev["orb_brief"], parent_ms = device_turns(lambda: K.orb_brief(*args), parent)
     for name, ms in dev.items():
         times[name]["device_ms"] = ms
+    levels = []
+    for label, cur, table in track_levels(tmpl, scene):
+        a = brief_args(cur, table)
+        ms, pms = device_turns(lambda a=a: K.orb_brief(*a), parent)
+        levels.append({"level": label, "keypoints": a[1].numel(), "device_ms": ms,
+                       "parent_device_ms": pms, "bound_ms": brief_bound_ms(cur, a[1].numel())})
+    times["orb_brief"].update(
+        parent_device_ms=parent_ms, track_levels=levels,
+        track_device_ms=sum(lv["device_ms"] for lv in levels),
+        track_lost_ms=sum(lv["device_ms"] - lv["bound_ms"] for lv in levels))
     emit("orb_kernel_device_time", card=card, shape=[ORB_N, ORB_CAP], fast_shape=list(batch.shape),
-         device_ms=dev,
-         event_ms={name: times[name]["ms"] for name in dev},
-         source="torch.profiler device events over 20 calls after a warm-up call")
+         device_ms=dev, parent_device_ms={"orb_brief": parent_ms},
+         event_ms={name: times[name]["ms"] for name in dev}, orb_brief_track_levels=levels,
+         source="torch.profiler device events over 20 calls after a warm-up call; with a "
+                "parent, the mean of 2 turns each (parent, committed, committed, parent)")
 
 
 def phase_cli(dev):
@@ -1823,6 +1987,10 @@ def phase_sharded_timing(batch, card):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="an earlier commit's tree: its K4 and K8 are timed beside "
+                                     "the committed ones by the profiler, in turns")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1831,7 +1999,9 @@ def main():
     op_rates = set_op_rates()
     t_start = t0 = time.perf_counter()
     _build.library()
-    emit("build", card=card, device=torch.cuda.get_device_name(0), torch=torch.__version__,
+    parent = parent_library(args.parent)
+    emit("build", card=card, parent=args.parent, device=torch.cuda.get_device_name(0),
+         torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=time.perf_counter() - t0,
          nvcc=" ".join(_build.NVCC_FLAGS), operation_rates=op_rates)
 
@@ -1853,9 +2023,9 @@ def main():
     times.update(phase_timing(batch, card))
     times.update(phase_sharded_timing(batch, card))
     del batch
-    times.update(phase_faces_timing(faces_batch, card, phase_faces_work(faces_batch)))
+    times.update(phase_faces_timing(faces_batch, card, phase_faces_work(faces_batch), parent))
     times.update(phase_orb_timing(orb_frames, card))
-    phase_orb_device_time(orb_frames, times, card)
+    phase_orb_device_time(orb_frames, times, card, parent)
     times.update(phase_scan_timing(scan_batch, scan_corners, card))
     del scan_batch, faces_batch, orb_frames
     times.update(phase_dense_timing(dense_batch, dense_binary, card))

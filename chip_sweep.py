@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
-    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu,patches,ccl}]
+    python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu,patches,ccl,
+                                     integral}]
                           [--parent DIR ...] [--only NAME ...]
 
 It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
@@ -96,12 +97,21 @@ byte each), the blocks (``kSmallThreads``: 128, 256; ``kLargeThreads``: 512,
 1024; small or large blocks for every call), keypoints a warp (1, 2, 4: the
 ``KEYS_A_WARP`` kernel), weights from a shared table or computed by each
 lane in either block size, dp4a against four multiply-adds, and every keypoint
-through the guarded path; on
-the 16 x 500
-keypoints of ``orb_extract`` on lena (clamped as ``orb_extract`` clamps them)
-and on ``track``'s six levels of aruco (template and scene, 833 or 2,500
-keypoints each).  K8 is held to its plain version in the same libraries and
-timed beside them.  Device time too.
+through the guarded path; K8's split of a keypoint over warps (always,
+never, over 2 warps, below 8, 16 or 64 keypoints an SM), its blocks
+(``kBriefThreads``: 256), its grid cap (``kBriefBlocksPerSm``: 4, 16, 64),
+each keypoint's window staged in shared memory (``STAGED``), and two
+ablations (the keypoints' loads and stores alone; with the rotation); on the
+16 x 500 keypoints of ``orb_extract`` on lena (clamped as ``orb_extract``
+clamps them) and on ``track``'s six calls on aruco (template and scene, 833
+or 2,500 keypoints each), K7 and K8 at each.  Device time too.
+
+``--source integral``: K4's band height (``kBand``: 8, 32, 64), block cap
+(``kMaxThreads``: 128, 512), at least 4 blocks an SM, and two ablations (the band scan without the
+launches before it; those without it); on ``detect_faces``' 32 frames of
+640x480, one frame, the 32 x 120 x 640 shard of a (1, 4) mesh, a 4200x4200
+frame of 255s and 32 frames of 479x639 at an odd byte offset, with two
+``torch.cumsum`` calls as a yardstick.  Device time too.
 
 ``--source ccl``: K9's tile (``kTileH`` x ``kTileW``: 32x128, 16x256, 64x64,
 16x128, 32x256, 8x256), the flatten of every tile or only of tiles with a
@@ -127,16 +137,13 @@ import time
 
 import torch
 
-from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FILTER_TAPS, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
+from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FACES_H, FACES_N, FACES_W, FILTER_TAPS,
+                        MAIN_H, MAIN_N, MAIN_R, MAIN_W,
                         ORB_CAP, ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_CAP, SCAN_N, SCAN_PAGE,
-                        TRACK_KPS, _aruco,
-                        alternate_windows, card_line, device_ms, document_batch, lena_batch,
-                        receipt_batch)
+                        WithEntries, _aruco, alternate_windows, brief_args, card_line, device_ms,
+                        document_batch, lena_batch, receipt_batch, track_levels)
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
-from grayskull_tpu_torch import libm32
-from grayskull_tpu_torch.ops.pixel import downsample
-from grayskull_tpu_torch.pipelines.orb import pyramid_levels
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.profiling import timeit
 
@@ -1116,7 +1123,7 @@ orb_moments_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
 
 """
 K7_KERNEL_START = "// Grid ceil(n * k / (kThreads / 32)), block kThreads: a warp takes a keypoint,"
-K7_KERNEL_END = "// Grid min(ceil(n * k / kWarps), kMaxBriefBlocks)"
+K7_KERNEL_END = "// K8's layout: a keypoint's eight words split over kSplit warps"
 K7_LARGE = "orb_moments_kernel<kLargeThreads, 2048 / kLargeThreads, true>"
 K7_SMALL = "orb_moments_kernel<kSmallThreads, 1, false>"
 
@@ -1146,6 +1153,206 @@ PATCHES_VARIANTS = {
     "guarded_only": lambda s: edit(s, "if (x >= r && x + r < w && y >= r && y + r < h) {",
                                    "if (false) {"),
     "column_bytes": lambda s: replace_span(s, K7_KERNEL_START, K7_KERNEL_END, COLUMN_BYTES),
+    "brief_split_always": const("kSplitBelow", 1 << 20),
+    "brief_split_never": const("kSplitBelow", 0),
+    "brief_split2": const("kSmallSplit", 2),
+    **{f"brief_split_below{v}": const("kSplitBelow", v) for v in (8, 16, 64)},
+    "brief_threads256": const("kBriefThreads", 256),
+    **{f"brief_cap{v}": const("kBriefBlocksPerSm", v) for v in (4, 16, 64)},
+    # each keypoint's 41 x 41 window staged in shared memory (16-byte chunks,
+    # masked at the frame's sides), then sampled with no bounds test
+    "brief_staged": lambda s: replace_span(replace_span(s, K8_START, "}  // namespace", STAGED),
+                                           K8_ENTRY_START, "  return cudaGetLastError();\n}\n\n}",
+                                           K8_ENTRY_START + STAGED_ENTRY),
+}
+# K8's parts alone (timed, not checked): the keypoints' loads and stores, and
+# those with the rotation (the ballots compare offsets in place of samples)
+PATCHES_ABLATIONS = {
+    "brief_empty": lambda s: edit(
+        s, "    int off1[kPairs], off2[kPairs];\n",
+        "    if (lane < kPairs) desc[static_cast<size_t>(kp) * 8 + first + lane] = "
+        "(x + y) & 0 & __float_as_uint(s + c);\n"
+        "    continue;\n    int off1[kPairs], off2[kPairs];\n"),
+    "brief_rotation_only": lambda s: edit(
+        s, "__ballot_sync(0xffffffffu, centre[off1[j]] > centre[off2[j]]);",
+        "__ballot_sync(0xffffffffu, off1[j] > off2[j]);"),
+}
+
+K8_START = K7_KERNEL_END
+K8_ENTRY_START = ("                 const void* pattern, void* desc, int n, int h, int w, int k, "
+                  "void* stream) {\n")
+STAGED = r"""// K8's layout: a warp stages a keypoint's window as kChunks 16-byte chunks a
+// row at a pitch of kWinPitch bytes, kStageSteps chunks a lane.
+constexpr int kReach = 20;            // |dx|, |dy| of a rotated endpoint (PATCH_PAD)
+constexpr int kWin = 2 * kReach + 1;  // the window's rows and columns
+constexpr int kPatch = 48;            // the plain version's patch: offsets -20 .. 27
+constexpr int kChunks = 4;            // 16-byte chunks that hold 41 bytes from any misalignment
+constexpr int kWinPitch = 80;         // bytes between staged rows (a multiple of 16)
+constexpr int kStageSteps = (kWin * kChunks + 31) / 32;
+constexpr int kBriefWarps = 4;        // keypoints a block holds at once, a warp each
+constexpr int kBriefBlocksPerSm = 8;  // the grid's cap: blocks a card's SM, then loop
+
+// Chunk q of window row i (frame row y - kReach + i) of the keypoint at (x, y):
+// the 16 bytes at 16q past the aligned 16 bytes that hold column x - kReach.
+// A chunk is read only when it holds a column of x - kReach .. x + kReach
+// inside the frame (so it lies in the frame's storage); kMasked: the columns
+// outside the frame are masked to 0 (the keypoint is within kReach of a side).
+template <bool kMasked>
+__device__ __forceinline__ uint4 window_chunk(const uint8_t* __restrict__ f, int x, int y, int h,
+                                              int w, int i, int q) {
+  const int yy = y - kReach + i;
+  const uintptr_t start = reinterpret_cast<uintptr_t>(f) + static_cast<size_t>(yy) * w +
+                          static_cast<uintptr_t>(static_cast<intptr_t>(x - kReach));
+  const int mis = static_cast<int>(start & 15u);
+  const int c0 = x - kReach - mis + 16 * q;  // the frame column of the chunk's first byte
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  const int first = max(max(c0, x - kReach), 0), last = min(min(c0 + 15, x + kReach), w - 1);
+  if (yy < 0 || yy >= h || first > last) return v;
+  v = *reinterpret_cast<const uint4*>(start - mis + 16 * q);
+  if (kMasked) {
+    unsigned* word = &v.x;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int lo = min(max(-(c0 + 4 * k), 0), 4), hi = min(max(c0 + 4 * k + 4 - w, 0), 4);
+      word[k] &= lo + hi >= 4 ? 0u : (0xffffffffu << (8 * lo)) & (0xffffffffu >> (8 * hi));
+    }
+  }
+  return v;
+}
+
+// The sample at offset (dx, dy) of the keypoint's 48 x 48 patch: 0 outside
+// the patch or the frame.
+__device__ __forceinline__ int patch_pixel(const uint8_t* __restrict__ f, int x, int y, int h,
+                                           int w, int dx, int dy) {
+  const bool in_patch = static_cast<unsigned>(dx) + kReach < static_cast<unsigned>(kPatch) &&
+                        static_cast<unsigned>(dy) + kReach < static_cast<unsigned>(kPatch);
+  return in_patch ? pixel(f, x + dx, y + dy, h, w) : 0;
+}
+
+// The endpoint (px, py) rotated by (s, c), each product and sum rounded on its
+// own and truncated toward zero.
+__device__ __forceinline__ void rotate(float px, float py, float s, float c, int& dx, int& dy) {
+  dx = __float2int_rz(__fsub_rn(__fmul_rn(px, c), __fmul_rn(py, s)));
+  dy = __float2int_rz(__fadd_rn(__fmul_rn(px, s), __fmul_rn(py, c)));
+}
+
+// Stage the keypoint's window: chunk e = step * 32 + lane is row e / kChunks.
+template <bool kMasked>
+__device__ __forceinline__ void stage_window(uint8_t* win, const uint8_t* __restrict__ f, int x,
+                                             int y, int h, int w, int lane) {
+#pragma unroll
+  for (int step = 0; step < kStageSteps; ++step) {
+    const int e = step * 32 + lane;
+    if (e < kWin * kChunks) {
+      const int i = e / kChunks, q = e % kChunks;
+      *reinterpret_cast<uint4*>(win + i * kWinPitch + 16 * q) =
+          window_chunk<kMasked>(f, x, y, h, w, i, q);
+    }
+  }
+}
+
+// Grid min(ceil(n * k / kBriefWarps), kBriefBlocksPerSm * SMs), block
+// 32 * kBriefWarps; each warp walks over keypoints kp = warp, warp + all warps, ...
+__global__ void __launch_bounds__(32 * kBriefWarps)
+orb_brief_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
+                 const int* __restrict__ ys, const float* __restrict__ sins,
+                 const float* __restrict__ coss, const float* __restrict__ pattern,
+                 uint32_t* __restrict__ desc, int n, int h, int w, int k) {
+  __shared__ __align__(16) uint8_t window[kBriefWarps][kWin * kWinPitch];
+  const int lane = threadIdx.x % 32;
+  uint8_t* win = window[threadIdx.x / 32];
+  float px1[8], py1[8], px2[8], py2[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float* p = pattern + 4 * (32 * j + lane);
+    px1[j] = p[0];
+    py1[j] = p[1];
+    px2[j] = p[2];
+    py2[j] = p[3];
+  }
+  const int total = n * k;
+  const int stride = gridDim.x * kBriefWarps;
+  for (int kp = blockIdx.x * kBriefWarps + static_cast<int>(threadIdx.x) / 32; kp < total;
+       kp += stride) {
+    const uint8_t* f = imgs + static_cast<size_t>(kp / k) * h * w;
+    const int x = xs[kp], y = ys[kp];
+    const float s = sins[kp], c = coss[kp];
+    __syncwarp();  // the previous keypoint's samples are read
+    if (x >= kReach && x + kReach < w) {
+      stage_window<false>(win, f, x, y, h, w, lane);
+    } else {
+      stage_window<true>(win, f, x, y, h, w, lane);
+    }
+    // row i's misalignment is (m0 + i * w) & 15
+    const unsigned m0 = static_cast<unsigned>(
+        (reinterpret_cast<uintptr_t>(f) + static_cast<size_t>(static_cast<intptr_t>(y - kReach)) * w +
+         static_cast<uintptr_t>(static_cast<intptr_t>(x - kReach))) & 15u);
+    int off1[8], off2[8];
+    bool outside = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      int dx1, dy1, dx2, dy2;
+      rotate(px1[j], py1[j], s, c, dx1, dy1);
+      rotate(px2[j], py2[j], s, c, dx2, dy2);
+      const unsigned i1 = static_cast<unsigned>(dy1) + kReach, i2 = static_cast<unsigned>(dy2) + kReach;
+      const unsigned j1 = static_cast<unsigned>(dx1) + kReach, j2 = static_cast<unsigned>(dx2) + kReach;
+      outside |= i1 >= static_cast<unsigned>(kWin) || i2 >= static_cast<unsigned>(kWin) ||
+                 j1 >= static_cast<unsigned>(kWin) || j2 >= static_cast<unsigned>(kWin);
+      off1[j] = static_cast<int>(i1 * kWinPitch + ((m0 + i1 * w) & 15u) + j1);
+      off2[j] = static_cast<int>(i2 * kWinPitch + ((m0 + i2 * w) & 15u) + j2);
+    }
+    __syncwarp();  // the window is staged
+    uint32_t mine = 0;
+    if (!__any_sync(0xffffffffu, outside)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t word = __ballot_sync(0xffffffffu, win[off1[j]] > win[off2[j]]);
+        if (lane == j) mine = word;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int dx1, dy1, dx2, dy2;
+        rotate(px1[j], py1[j], s, c, dx1, dy1);
+        rotate(px2[j], py2[j], s, c, dx2, dy2);
+        const uint32_t word = __ballot_sync(0xffffffffu, patch_pixel(f, x, y, h, w, dx1, dy1) >
+                                                             patch_pixel(f, x, y, h, w, dx2, dy2));
+        if (lane == j) mine = word;
+      }
+    }
+    if (lane < 8) desc[static_cast<size_t>(kp) * 8 + lane] = mine;
+  }
+}
+
+"""
+STAGED_ENTRY = r"""  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int blocks = (n * k + kBriefWarps - 1) / kBriefWarps;
+  if (blocks > kBriefBlocksPerSm * sms) blocks = kBriefBlocksPerSm * sms;
+  orb_brief_kernel<<<blocks, 32 * kBriefWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(imgs), static_cast<const int*>(x), static_cast<const int*>(y),
+      static_cast<const float*>(sin), static_cast<const float*>(cos),
+      static_cast<const float*>(pattern), static_cast<uint32_t*>(desc), n, h, w, k);
+"""
+
+
+INTEGRAL_VARIANTS = {
+    "committed": lambda s: s,
+    **{f"band{b}": const("kBand", b) for b in (8, 32, 64)},
+    **{f"threads{t}": const("kMaxThreads", t) for t in (128, 512)},
+    # the band scan at 4 blocks of kMaxThreads an SM at least (64 registers)
+    "min_blocks4": lambda s: edit(s, "__launch_bounds__(kMaxThreads)\nband_scan_kernel",
+                                  "__launch_bounds__(kMaxThreads, 4)\nband_scan_kernel"),
+}
+# K4's launches alone (timed, not checked): the band scan without the launches
+# before it (its carries are whatever the output held), and those two without it
+INTEGRAL_ABLATIONS = {
+    "band_scan_only": lambda s: edit(s, "  if (nb > 1) {\n    band_totals_kernel",
+                                     "  if (false) {\n    band_totals_kernel"),
+    "totals_and_scan_only": lambda s: edit(
+        s, "  band_scan_kernel<kVec><<<dim3(nb, n), threads, 0, st>>>(src, dst, h, w);\n  return",
+        "  return"),
 }
 
 # K9's flatten of only the tiles with a foreground pair across their edge
@@ -1220,34 +1427,22 @@ CCL_ABLATIONS = {
 
 
 def patches_cases(dev):
-    """K7 at the main path's shapes (16 x 500 keypoints of orb_extract on lena,
-    clamped as orb_extract clamps them) and at track's six levels (aruco's
-    template and scene, 3 levels each); K8 at the main shapes."""
+    """K7 and K8 at the main path's shapes (16 x 500 keypoints of orb_extract on
+    lena, clamped as orb_extract clamps them) and at track's six calls (aruco's
+    template and scene, 3 levels each)."""
     batch = torch.from_numpy(lena_batch(ORB_N, ORB_H, ORB_W, roll=5)).to(dev)
-    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
-    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
-    sin, cos = libm32.sinf(kps.angle), libm32.cosf_like_reference(kps.angle)
-    cases = {
-        "orb_moments_16x500": (sx.shape, lambda: K.orb_moments(batch, sx, sy),
-                               lambda: K.orb_moments_plain(batch, sx, sy)),
-        "orb_brief_16x500": (sx.shape, lambda: K.orb_brief(batch, sx, sy, sin, cos),
-                             lambda: K.orb_brief_plain(batch, sx, sy, sin, cos)),
-    }
+    cases = {}
     aruco = _aruco()
-    frames = {"template": torch.from_numpy(aruco[100:350, 150:450].copy()).to(dev),
-              "scene": torch.from_numpy(aruco).to(dev)}
-    for name, frame in frames.items():  # track's levels: an equal split, the last takes the rest
-        cur = frame[None]
-        levels = pyramid_levels(cur.shape[-2:])
-        for lvl, (h, w) in enumerate(levels):
-            if lvl:
-                cur = downsample(cur)
-            cap = TRACK_KPS if lvl == len(levels) - 1 else TRACK_KPS // len(levels)
-            t = gt.orb_extract(cur, cap, ORB_THR)
-            x, y = t.x.clamp(15, w - 16), t.y.clamp(15, h - 16)
-            cases[f"orb_moments_track_{name}_{h}x{w}"] = (
-                x.shape, lambda c=cur, x=x, y=y: K.orb_moments(c, x, y),
-                lambda c=cur, x=x, y=y: K.orb_moments_plain(c, x, y))
+    tmpl = torch.from_numpy(aruco[100:350, 150:450].copy()).to(dev)
+    scene = torch.from_numpy(aruco).to(dev)
+    calls = [(f"{ORB_N}x{ORB_CAP}", batch, gt.orb_extract(batch, ORB_CAP, ORB_THR))]
+    calls += [(f"track_{label}", cur, table) for label, cur, table in track_levels(tmpl, scene)]
+    for label, frames, table in calls:
+        a = brief_args(frames, table)
+        cases[f"orb_moments_{label}"] = (a[1].shape, lambda a=a: K.orb_moments(*a[:3]),
+                                         lambda a=a: K.orb_moments_plain(*a[:3]))
+        cases[f"orb_brief_{label}"] = (a[1].shape, lambda a=a: K.orb_brief(*a),
+                                       lambda a=a: K.orb_brief_plain(*a))
     return cases, {}
 
 
@@ -1269,9 +1464,31 @@ def ccl_cases(dev):
     return cases, {}
 
 
+def integral_cases(dev):
+    """K4 on detect_faces' 32 frames of 640x480 (lena rolled 7*i columns), on one
+    of them, on integral_sharded's shard of a (1, 4) mesh (32 x 120 x 640), on a
+    4200x4200 frame of 255s (its sums wrap past 2^32) and on 32 frames of
+    479x639 that start an odd number of bytes into their batch ([1:] of 33: the
+    byte path); beside the faces batch, two ``torch.cumsum`` calls as a yardstick."""
+    faces = torch.from_numpy(lena_batch(FACES_N, FACES_H, FACES_W, roll=7)).to(dev)
+    odd = torch.from_numpy(lena_batch(FACES_N + 1, FACES_H - 1, FACES_W - 1, roll=7)).to(dev)[1:]
+    frames = {f"faces_{FACES_N}x{FACES_H}x{FACES_W}": faces,
+              f"one_{FACES_H}x{FACES_W}": faces[:1],
+              f"shard_{FACES_N}x{FACES_H // 4}x{FACES_W}": faces[:, :FACES_H // 4].contiguous(),
+              "wrap_1x4200x4200": torch.full((1, 4200, 4200), 255, dtype=torch.uint8, device=dev),
+              f"unaligned_{FACES_N}x{FACES_H - 1}x{FACES_W - 1}": odd}
+    cases = {f"integral_{label}": (x.shape, lambda x=x: K.integral(x),
+                                   lambda x=x: K.integral_plain(x))
+             for label, x in frames.items()}
+    library = {f"integral_faces_{FACES_N}x{FACES_H}x{FACES_W}": {
+        "cumsum_cumsum_int32":
+            lambda: torch.cumsum(torch.cumsum(faces, -1, dtype=torch.int32), -2)}}
+    return cases, library
+
+
 # sources whose kernels are short enough that back-to-back calls may time the
 # host: their variants are also timed by the profiler's device events
-DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl")
+DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl", "integral")
 
 SOURCES = {
     "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
@@ -1284,8 +1501,10 @@ SOURCES = {
     "resize": ("resize.cu", ("gs_resize",), RESIZE_VARIANTS, {}, resize_cases, r"resize|Used"),
     "fast": ("fast.cu", ("gs_fast",), FAST_VARIANTS, {}, fast_cases, r"fast|Used"),
     "otsu": ("otsu.cu", ("gs_otsu",), OTSU_VARIANTS, {}, otsu_hist_cases, r"otsu|Used"),
-    "patches": ("patches.cu", ("gs_orb_moments", "gs_orb_brief"), PATCHES_VARIANTS, {},
-                patches_cases, r"orb_moments|orb_brief|Used"),
+    "patches": ("patches.cu", ("gs_orb_moments", "gs_orb_brief"), PATCHES_VARIANTS,
+                PATCHES_ABLATIONS, patches_cases, r"orb_moments|orb_brief|Used"),
+    "integral": ("integral.cu", ("gs_integral",), INTEGRAL_VARIANTS, INTEGRAL_ABLATIONS,
+                 integral_cases, r"band|carry|Used"),
     "ccl": ("ccl.cu", ("gs_ccl",), CCL_VARIANTS, CCL_ABLATIONS, ccl_cases, r"tile|border|flatten|merge|init|Used"),
 }
 # (kernel, library call) pairs that every variant is also timed against in
@@ -1352,23 +1571,6 @@ def build_variants(source, entries, variants, parent):
     return libs, regs, failed
 
 
-class _Errors:
-    """Stands in for the committed library while a variant library is loaded:
-    the variant's entries, and the committed library's ``gs_error_string`` and
-    every entry the variant's file does not define (a case that runs a whole
-    entry point, such as ``scan``, calls those)."""
-
-    def __init__(self, lib, committed):
-        self._lib, self._committed = lib, committed
-        self.gs_error_string = committed.gs_error_string
-
-    def __getattr__(self, name):
-        try:
-            return getattr(self._lib, name)
-        except AttributeError:
-            return getattr(self._committed, name)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", choices=sorted(SOURCES), default="preproc",
@@ -1395,7 +1597,7 @@ def main():
     if held & set(failed):
         raise AssertionError(f"a committed or parent build failed: "
                              f"{ {k: v for k, v in failed.items() if k in held} }")
-    libs = {name: _Errors(lib, committed) for name, lib in libs.items()}
+    libs = {name: WithEntries(lib, committed) for name, lib in libs.items()}
     emit("sweep_build", card=card, source=source, seconds=time.perf_counter() - t0,
          variants=list(libs), failed=failed,
          ptxas={name: [r for r in lines if re.search(reg_pattern, r)]

@@ -51,10 +51,23 @@
 // of chip_sweep.py --source patches on the H100 (PERF.md), which also carries
 // the alternatives it rejected (2 or 4 keypoints a warp, lanes along a row's
 // columns, multiply-adds in place of dp4a).
-// K8: a lane takes pair 32 * j + lane of word j, so one
-// __ballot_sync builds each word; the lane's eight pairs sit in registers,
-// loaded once, and each warp walks over keypoints in a grid-stride loop.
-// Lane j stores word j, one 32-byte store per keypoint.
+// K8 (redesigned for Hopper): the work is the rotation, not the reads.  A
+// lane rotates 16 endpoints a keypoint (four rounded products, two rounded
+// sums, two truncations each) and addresses and compares 16 samples: about
+// 250 instructions, so a call is bound by issue and by the chain of each
+// keypoint (its coordinates, then its samples), not by bytes (PERF.md: in the
+// sweep, staging each keypoint's 41 x 41 window in shared memory, by loads or
+// cp.async, cost as much as the gathers it saved).  So the samples are byte
+// gathers from the frame, with no bounds test when the keypoint's whole window
+// (every rotated endpoint lies within 20 of it: the pattern's largest radius is
+// 20.52) is in the frame, and a warp with an endpoint past 20 (sin and cos off
+// the unit circle) or a window past a border reads through pixel() with the
+// patch's bounds, as the plain version reads.  A lane takes pair 32 * j + lane
+// of word j, its pairs in registers, loaded once; one __ballot_sync builds
+// each word.  A call of fewer keypoints than 32 for each SM of the card
+// (track's pyramid levels) splits each keypoint's eight words over four warps,
+// a shorter chain a keypoint; a larger call gives a keypoint a warp and walks
+// over keypoints in a grid-stride loop.
 //
 // Each entry returns cudaGetLastError().
 
@@ -63,10 +76,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBriefBlocks = 132 * 16;  // enough warps to fill the card, then loop
 
 __device__ __forceinline__ int pixel(const uint8_t* __restrict__ f, int x, int y, int h, int w) {
   return (x >= 0 && x < w && y >= 0 && y < h) ? f[static_cast<size_t>(y) * w + x] : 0;
@@ -239,41 +248,94 @@ orb_moments_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
   }
 }
 
-// Grid min(ceil(n * k / kWarps), kMaxBriefBlocks), block kThreads; each warp
-// walks over keypoints kp = warp, warp + all warps, ...
-__global__ void orb_brief_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
-                                 const int* __restrict__ ys, const float* __restrict__ sins,
-                                 const float* __restrict__ coss,
-                                 const float* __restrict__ pattern, uint32_t* __restrict__ desc,
-                                 int n, int h, int w, int k) {
-  const int lane = threadIdx.x % 32;
-  float px1[8], py1[8], px2[8], py2[8];
+// K8's layout: a keypoint's eight words split over kSplit warps; a lane
+// rotates 8 / kSplit pairs, held in registers.
+constexpr int kReach = 20;             // |dx|, |dy| of a rotated endpoint (PATCH_PAD)
+constexpr int kPatch = 48;             // the plain version's patch: offsets -20 .. 27
+constexpr int kBriefThreads = 128;     // a block's threads
+constexpr int kBriefBlocksPerSm = 8;   // the grid's cap for unsplit calls: blocks an SM, then loop
+constexpr int kSplitBelow = 32;        // calls of fewer keypoints than this times the SMs split
+constexpr int kSmallSplit = 4;         // warps a keypoint in such calls
+
+// The sample at offset (dx, dy) of the keypoint's 48 x 48 patch: 0 outside
+// the patch or the frame.
+__device__ __forceinline__ int patch_pixel(const uint8_t* __restrict__ f, int x, int y, int h,
+                                           int w, int dx, int dy) {
+  const bool in_patch = static_cast<unsigned>(dx) + kReach < static_cast<unsigned>(kPatch) &&
+                        static_cast<unsigned>(dy) + kReach < static_cast<unsigned>(kPatch);
+  return in_patch ? pixel(f, x + dx, y + dy, h, w) : 0;
+}
+
+// The endpoint (px, py) rotated by (s, c), each product and sum rounded on its
+// own and truncated toward zero.
+__device__ __forceinline__ void rotate(float px, float py, float s, float c, int& dx, int& dy) {
+  dx = __float2int_rz(__fsub_rn(__fmul_rn(px, c), __fmul_rn(py, s)));
+  dy = __float2int_rz(__fadd_rn(__fmul_rn(px, s), __fmul_rn(py, c)));
+}
+
+// Grid ceil(n * k / keys) blocks of kBriefThreads, keys = kBriefThreads / 32 /
+// kSplit keypoints a block at once (at most kBriefBlocksPerSm * SMs blocks when
+// kSplit is 1); warp q takes words (q % kSplit) * 8 / kSplit .. of keypoint
+// q / kSplit, and the block walks over keypoints kp, kp + keys * blocks, ...
+template <int kSplit>
+__global__ void __launch_bounds__(kBriefThreads)
+orb_brief_kernel(const uint8_t* __restrict__ imgs, const int* __restrict__ xs,
+                 const int* __restrict__ ys, const float* __restrict__ sins,
+                 const float* __restrict__ coss, const float* __restrict__ pattern,
+                 uint32_t* __restrict__ desc, int n, int h, int w, int k) {
+  constexpr int kPairs = 8 / kSplit;                 // words a warp builds, pairs a lane
+  constexpr int kKeys = kBriefThreads / 32 / kSplit;  // keypoints a block holds at once
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int first = (warp % kSplit) * kPairs;         // the warp's first word
+  float px1[kPairs], py1[kPairs], px2[kPairs], py2[kPairs];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float* p = pattern + 4 * (32 * j + lane);
+  for (int j = 0; j < kPairs; ++j) {
+    const float* p = pattern + 4 * (32 * (first + j) + lane);
     px1[j] = p[0];
     py1[j] = p[1];
     px2[j] = p[2];
     py2[j] = p[3];
   }
   const int total = n * k;
-  const int stride = gridDim.x * kWarps;
-  for (int kp = (blockIdx.x * blockDim.x + threadIdx.x) / 32; kp < total; kp += stride) {
+  for (int kp = blockIdx.x * kKeys + warp / kSplit; kp < total; kp += gridDim.x * kKeys) {
     const uint8_t* f = imgs + static_cast<size_t>(kp / k) * h * w;
     const int x = xs[kp], y = ys[kp];
     const float s = sins[kp], c = coss[kp];
-    uint32_t mine = 0;
+    int off1[kPairs], off2[kPairs];
+    bool outside = false;  // an endpoint past kReach (sin and cos off the unit circle)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int dx1 = __float2int_rz(__fsub_rn(__fmul_rn(px1[j], c), __fmul_rn(py1[j], s)));
-      const int dy1 = __float2int_rz(__fadd_rn(__fmul_rn(px1[j], s), __fmul_rn(py1[j], c)));
-      const int dx2 = __float2int_rz(__fsub_rn(__fmul_rn(px2[j], c), __fmul_rn(py2[j], s)));
-      const int dy2 = __float2int_rz(__fadd_rn(__fmul_rn(px2[j], s), __fmul_rn(py2[j], c)));
-      const bool bit = pixel(f, x + dx1, y + dy1, h, w) > pixel(f, x + dx2, y + dy2, h, w);
-      const uint32_t word = __ballot_sync(0xffffffffu, bit);
-      if (lane == j) mine = word;
+    for (int j = 0; j < kPairs; ++j) {
+      int dx1, dy1, dx2, dy2;
+      rotate(px1[j], py1[j], s, c, dx1, dy1);
+      rotate(px2[j], py2[j], s, c, dx2, dy2);
+      outside |= static_cast<unsigned>(dx1) + kReach > 2u * kReach ||
+                 static_cast<unsigned>(dy1) + kReach > 2u * kReach ||
+                 static_cast<unsigned>(dx2) + kReach > 2u * kReach ||
+                 static_cast<unsigned>(dy2) + kReach > 2u * kReach;
+      off1[j] = dy1 * w + dx1;
+      off2[j] = dy2 * w + dx2;
     }
-    if (lane < 8) desc[static_cast<size_t>(kp) * 8 + lane] = mine;
+    const bool inside = x >= kReach && x + kReach < w && y >= kReach && y + kReach < h;
+    uint32_t mine = 0;
+    if (inside && !__any_sync(0xffffffffu, outside)) {  // every sample in the frame
+      const uint8_t* centre = f + static_cast<size_t>(y) * w + x;
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        const uint32_t word = __ballot_sync(0xffffffffu, centre[off1[j]] > centre[off2[j]]);
+        if (lane == j) mine = word;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        int dx1, dy1, dx2, dy2;
+        rotate(px1[j], py1[j], s, c, dx1, dy1);
+        rotate(px2[j], py2[j], s, c, dx2, dy2);
+        const uint32_t word = __ballot_sync(0xffffffffu, patch_pixel(f, x, y, h, w, dx1, dy1) >
+                                                             patch_pixel(f, x, y, h, w, dx2, dy2));
+        if (lane == j) mine = word;
+      }
+    }
+    if (lane < kPairs) desc[static_cast<size_t>(kp) * 8 + first + lane] = mine;
   }
 }
 
@@ -315,12 +377,30 @@ int gs_orb_moments(const void* imgs, const void* x, const void* y, void* m01, vo
 // pattern: (256, 4) float32 (x1, y1, x2, y2); desc: (n, k, 8) uint32.
 int gs_orb_brief(const void* imgs, const void* x, const void* y, const void* sin, const void* cos,
                  const void* pattern, void* desc, int n, int h, int w, int k, void* stream) {
-  int blocks = (n * k + kWarps - 1) / kWarps;
-  if (blocks > kMaxBriefBlocks) blocks = kMaxBriefBlocks;
-  orb_brief_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(imgs), static_cast<const int*>(x), static_cast<const int*>(y),
-      static_cast<const float*>(sin), static_cast<const float*>(cos),
-      static_cast<const float*>(pattern), static_cast<uint32_t*>(desc), n, h, w, k);
+  const int total = n * k;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* f = static_cast<const uint8_t*>(imgs);
+  const int* xs = static_cast<const int*>(x);
+  const int* ys = static_cast<const int*>(y);
+  const float* s = static_cast<const float*>(sin);
+  const float* c = static_cast<const float*>(cos);
+  const float* p = static_cast<const float*>(pattern);
+  uint32_t* d = static_cast<uint32_t*>(desc);
+  // a call too small to fill the card splits each keypoint over kSmallSplit
+  // warps (a shorter chain a keypoint); a larger one gives each a warp
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (total < kSplitBelow * sms) {
+    constexpr int keys = kBriefThreads / 32 / kSmallSplit;
+    orb_brief_kernel<kSmallSplit><<<(total + keys - 1) / keys, kBriefThreads, 0, st>>>(
+        f, xs, ys, s, c, p, d, n, h, w, k);
+  } else {
+    constexpr int keys = kBriefThreads / 32;
+    int blocks = (total + keys - 1) / keys;
+    if (blocks > kBriefBlocksPerSm * sms) blocks = kBriefBlocksPerSm * sms;
+    orb_brief_kernel<1><<<blocks, kBriefThreads, 0, st>>>(f, xs, ys, s, c, p, d, n, h, w, k);
+  }
   return cudaGetLastError();
 }
 

@@ -205,6 +205,31 @@ def test_integral_matches_plain_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 15, 64), (2, 16, 64), (2, 17, 64), (1, 33, 3), (3, 1, 1),
+                                   (1, 1, 1025), (1, 40, 1), (1, 9, 5), (1, 9, 17), (2, 70, 1024),
+                                   (1, 70, 1028), (1, 33, 2049), (32, 120, 640)])
+def test_integral_bands_and_chunks_on_card(cuda_device, shape):
+    """K4's shape classes: one band and several, a last band of 1 to 15 rows,
+    widths around a thread's 4 columns (the 4-byte path or the byte path) and
+    past a block's 1024, one row, one column, integral_sharded's shard."""
+    imgs = _frames(shape, 33, cuda_device)
+    assert torch.equal(_bits(K.integral(imgs)), _bits(K.integral_plain(imgs)))
+
+
+@pytest.mark.cuda
+def test_integral_unaligned_batches_on_card(cuda_device):
+    """K4's byte path for frames that start 1 .. 4 bytes into their buffer, and
+    for ``[1:]`` of a contiguous batch of 479 x 639 frames (an odd offset)."""
+    for shape in ((2, 65, 640), (3, 33, 129)):
+        for off in (1, 2, 3, 4):
+            imgs = _unaligned(shape, off, 34 + off, cuda_device)
+            assert torch.equal(_bits(K.integral(imgs)), _bits(K.integral_plain(imgs))), (shape, off)
+    imgs = _frames((33, 479, 639), 39, cuda_device)[1:]
+    assert imgs.is_contiguous() and imgs.data_ptr() % 2 == 1
+    assert torch.equal(_bits(K.integral(imgs)), _bits(K.integral_plain(imgs)))
+
+
+@pytest.mark.cuda
 def test_integral_wraps_on_card(cuda_device):
     imgs = torch.full((1, 4200, 4200), 255, dtype=torch.uint8, device=cuda_device)
     got = K.integral(imgs)
@@ -458,6 +483,60 @@ def test_orb_moments_and_brief_match_plain_on_card(cuda_device):
     s, c = libm32.sinf(a), libm32.cosf_like_reference(a)
     got = K.orb_brief(imgs, x, y, s, c)
     assert got.dtype == torch.uint32 and got.is_cuda
+    assert torch.equal(got.view(torch.int32), K.orb_brief_plain(imgs, x, y, s, c).view(torch.int32))
+
+
+def _brief_keypoints(rng, h, w, k, device):
+    """(2, k) int32 keypoints: at, near and past each border, at every x mod 4,
+    then random ones from 25 pixels before the frame to 25 past it."""
+    pts = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (19, 19), (20, 20), (21, 21),
+           (w - 20, h - 20), (w - 21, h - 21), (-1, -1), (w, h), (-20, 5), (-21, 5), (w + 20, 7),
+           (w + 19, 7), (-30, -25), (w + 60, -1), (5, h + 2), (15, 15), (w - 16, h - 16)]
+    pts += [(24 + i, 22 + i % 3) for i in range(8)]
+    xs = np.array([p[0] for p in pts] + rng.integers(-25, w + 25, k - len(pts)).tolist(), np.int32)
+    ys = np.array([p[1] for p in pts] + rng.integers(-25, h + 25, k - len(pts)).tolist(), np.int32)
+    return (torch.from_numpy(np.stack([xs, xs[::-1]]).copy()).to(device),
+            torch.from_numpy(np.stack([ys, ys[::-1]]).copy()).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_orb_brief_every_misalignment_on_card(cuda_device, offset):
+    """K8 on frames of odd width in batches that start 0 .. 3 bytes into their
+    buffer (every row misalignment), keypoints at every x mod 4 and at, near
+    and past each border (windows in the frame or not), angles 0, +-pi, +-pi/2
+    and random; then sin and cos off the unit circle (endpoints past 20, read
+    as the 48 x 48 patch reads them)."""
+    rng = np.random.default_rng(48 + offset)
+    h, w = 61, 203
+    imgs = _unaligned((2, h, w), offset, 49, cuda_device) if offset else _frames((2, h, w), 49,
+                                                                                 cuda_device)
+    x, y = _brief_keypoints(rng, h, w, 64, cuda_device)
+    angles = np.concatenate([[0.0, np.pi, -np.pi, np.pi / 2, -np.pi / 2],
+                             rng.uniform(-np.pi, np.pi, 59)])
+    a = torch.from_numpy(np.stack([angles, angles[::-1]]).astype(np.float32)).to(cuda_device)
+    s, c = libm32.sinf(a), libm32.cosf_like_reference(a)
+    scale = torch.tensor([1.0, 1.45, 0.5, 1.02, 2.0], device=cuda_device).repeat(13)[:64]
+    for s_, c_ in ((s, c), (s * scale, c * scale.flip(0))):
+        got = K.orb_brief(imgs, x, y, s_, c_)
+        assert torch.equal(got.view(torch.int32),
+                           K.orb_brief_plain(imgs, x, y, s_, c_).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_orb_brief_past_the_grid_cap_on_card(cuda_device):
+    """K8 with a warp a keypoint (32 keypoints an SM or more) and more keypoints
+    than its capped grid has warps (8 blocks of 4 warps an SM), so warps walk
+    over several keypoints; the other tests' calls split each keypoint over
+    four warps."""
+    rng = np.random.default_rng(50)
+    h, w = 61, 203
+    imgs = _frames((2, h, w), 51, cuda_device)
+    x, y = _brief_keypoints(rng, h, w, 5000, cuda_device)
+    assert x.numel() > 2 * 32 * torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    a = torch.from_numpy(rng.uniform(-np.pi, np.pi, (2, 5000)).astype(np.float32)).to(cuda_device)
+    s, c = libm32.sinf(a), libm32.cosf_like_reference(a)
+    got = K.orb_brief(imgs, x, y, s, c)
     assert torch.equal(got.view(torch.int32), K.orb_brief_plain(imgs, x, y, s, c).view(torch.int32))
 
 

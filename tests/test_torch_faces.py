@@ -9,6 +9,7 @@ goldens' LBP tables are empty, so the detections that count come from
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -26,6 +27,7 @@ from grayskull_tpu.ops.lbp import lbp_detect as jax_lbp_detect
 from grayskull_tpu.ops.lbp import lbp_window as jax_lbp_window
 from grayskull_tpu.ops.lbp import scale_ladder as jax_scale_ladder
 from grayskull_tpu.pipelines.faces import detect_faces as jax_detect_faces
+from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.core import host_arrays_to, lbp_cascade_from_arrays
 from tests.test_torch_cuda import host_arrays_on_cpu  # noqa: F401
 
@@ -137,6 +139,96 @@ def test_integral_wraps_uint32():
     assert int(got[-1, -1]) == (255 * 4200 * 4200) % 2**32
     np.testing.assert_array_equal(got, np.asarray(gs.integral(img, force_xla=True)))
     np.testing.assert_array_equal(got, np.asarray(integral_pallas(img, interpret=True)))
+
+
+def _integral_constants():
+    """K4's band height, pixels a thread and block cap, from ``csrc/integral.cu``."""
+    with open(os.path.join(REPO, "grayskull_tpu_torch", "csrc", "integral.cu")) as f:
+        src = f.read()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in ("kBand", "kPix", "kMaxThreads"))
+
+
+def _u32_cumsum(a, axis):
+    return np.cumsum(a, axis=axis, dtype=np.uint32)
+
+
+def _integral_replay(imgs, band, pix, max_threads):
+    """``csrc/integral.cu``'s K4 in numpy, uint32 with wraparound: (1) each band
+    but the last sums its columns, bytes packed as 16-bit pairs of each 4-byte
+    word, into its first output row; (2) a walk down the bands turns those rows
+    into the column sums above each band; (3) each band's block takes chunks of
+    ``threads * pix`` columns: a thread's running column sums from the carry,
+    its row totals, the warp's inclusive scan of them, the warps before it
+    (their totals through shared memory) and the row's carry from earlier
+    chunks, then the thread's own running sum over its ``pix`` columns."""
+    n, h, w = imgs.shape
+    nb = -(-h // band)
+    cols = -(-w // pix)
+    threads = max_threads if cols >= max_threads else -(-cols // 32) * 32
+    chunk, warps = threads * pix, threads // 32
+    out = np.zeros((n, h, w), np.uint32)
+    for b in range(nb - 1):  # (1) band totals, a whole band each
+        rows = np.zeros((n, band, -(-w // 4) * 4), np.uint8)
+        rows[..., :w] = imgs[:, b * band:(b + 1) * band]
+        words = rows.view("<u4")
+        even = (words & 0x00FF00FF).sum(1, dtype=np.uint32)
+        odd = ((words >> 8) & 0x00FF00FF).sum(1, dtype=np.uint32)
+        t = np.stack([even & 0xFFFF, odd & 0xFFFF, even >> 16, odd >> 16], -1).reshape(n, -1)
+        out[:, b * band] = t[:, :w]
+    run = np.zeros((n, w), np.uint32)
+    for b in range(nb):  # (2) the carries, in place
+        t = out[:, b * band].copy() if b < nb - 1 else 0
+        if b > 0:
+            out[:, b * band] = run
+        run = run + t
+    for b in range(nb):  # (3) the band scan
+        y0 = b * band
+        rows = min(band, h - y0)
+        carry = out[:, y0].copy() if b > 0 else np.zeros((n, w), np.uint32)
+        row_carry = np.zeros((n, rows), np.uint32)
+        for x0 in range(0, w, chunk):
+            live = min(chunk, w - x0)
+            raw = np.zeros((n, rows, chunk), np.uint32)
+            raw[..., :live] = imgs[:, y0:y0 + rows, x0:x0 + live]
+            c = np.zeros((n, chunk), np.uint32)
+            c[:, :live] = carry[:, x0:x0 + live]
+            col = c[:, None] + _u32_cumsum(raw, 1)  # (n, rows, chunk): running column sums
+            col = col.reshape(n, rows, warps, 32, pix)
+            t = col.sum(-1, dtype=np.uint32)  # a thread's row totals
+            v = _u32_cumsum(t, -1)  # the warp's inclusive scan
+            warp_total = v[..., 31]
+            earlier = _u32_cumsum(warp_total, -1) - warp_total
+            start = (v - t) + earlier[..., None] + row_carry[:, :, None, None]
+            res = start[..., None] + _u32_cumsum(col, -1)
+            out[:, y0:y0 + rows, x0:x0 + live] = res.reshape(n, rows, chunk)[..., :live]
+            row_carry = row_carry + warp_total.sum(-1, dtype=np.uint32)
+    return out
+
+
+@pytest.mark.parametrize("config", ["committed", "small"])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 1, 40), (1, 40, 1), (2, 33, 129), (2, 97, 200),
+                                   (1, 65, 2050), (2, 64, 17), (1, 31, 5)])
+def test_integral_band_replay_vs_plain_and_jax(config, shape):
+    """K4's band totals, carries and in-band scans, replayed at the committed
+    constants and at bands of 4 rows in blocks of 64 threads (many bands and
+    chunks at these sizes), equal ``integral_plain`` and the Pallas kernel in
+    interpret mode: heights and widths of 1, heights no multiple of a band,
+    widths no multiple of 4 or 16, and past one block's chunk."""
+    band, pix, max_threads = _integral_constants() if config == "committed" else (4, 4, 64)
+    imgs = _frames(shape, 31)
+    got = _integral_replay(imgs, band, pix, max_threads)
+    np.testing.assert_array_equal(got, K.integral_plain(torch.from_numpy(imgs)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(integral_pallas(imgs, interpret=True)))
+
+
+def test_integral_band_replay_wraps_uint32():
+    """The replay on 4200 x 4200 255s (the sums pass 2^32 from row 1,008 on)."""
+    imgs = np.full((1, 4200, 4200), 255, np.uint8)
+    got = _integral_replay(imgs, *_integral_constants())
+    assert int(got[0, -1, -1]) == (255 * 4200 * 4200) % 2**32
+    np.testing.assert_array_equal(got, K.integral_plain(torch.from_numpy(imgs)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(integral_pallas(imgs, interpret=True)))
 
 
 def test_integral_golden(goldens):

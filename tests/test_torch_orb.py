@@ -21,6 +21,7 @@ equal bit for bit.
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from grayskull_tpu.kernels.patches import extract_patches_batched
 from grayskull_tpu.ops.features import _brief_single, _select_candidates_sort
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels.fast import _run9, _threshold
+from grayskull_tpu_torch.kernels.patches import BRIEF_PATTERN
 from grayskull_tpu_torch import libm32
 from grayskull_tpu_torch.core import keypoints_from_arrays
 from grayskull_tpu_torch.ops.features import _select_candidates
@@ -527,6 +529,85 @@ def test_orb_moments_word_replay_vs_plain_and_jax(r, shape, offset):
     ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
     np.testing.assert_array_equal(m01[ok], (patches * dy * disc).sum((-2, -1))[ok])
     np.testing.assert_array_equal(m10[ok], (patches * dx * disc).sum((-2, -1))[ok])
+
+
+def _orb_brief_replay(imgs, xs, ys, sin, cos, offset, split):
+    """``csrc/patches.cu``'s K8 in numpy: a keypoint's eight words split over
+    ``split`` warps, lane l of a warp rotating pair 32 j + l of each of its
+    words.  A warp whose endpoints all lie within 20 of a keypoint whose 41 x 41
+    window is in the frame reads each sample at ``centre + dy * w + dx`` of the
+    batch (which starts ``offset`` bytes into its buffer) with no bounds test;
+    any other warp reads through ``pixel()`` with the 48 x 48 patch's bounds.
+    Bit i of word j compares pair 32 j + i."""
+    n, h, w = imgs.shape
+    buf = np.zeros(offset + imgs.size, np.uint8)
+    buf[offset:] = imgs.ravel()
+    frame = (np.arange(n)[:, None] + np.zeros_like(xs)).astype(np.int64)[..., None]
+    x, y = xs.astype(np.int64)[..., None], ys.astype(np.int64)[..., None]
+    pat = BRIEF_PATTERN.astype(np.float32)
+    px = np.concatenate([pat[:, 0], pat[:, 2]])
+    py = np.concatenate([pat[:, 1], pat[:, 3]])
+    s, c = sin[..., None], cos[..., None]
+    dx = np.trunc(px * c - py * s).astype(np.int64)  # float32: each operation rounds
+    dy = np.trunc(px * s + py * c).astype(np.int64)
+    far = (np.abs(dx) > 20) | (np.abs(dy) > 20)  # (n, k, 512): both endpoints of each pair
+    part = (np.arange(256) // 32) // (8 // split)  # the warp of each pair
+    far_pair = far[..., :256] | far[..., 256:]
+    outside = np.stack([far_pair[..., part == q].any(-1) for q in range(split)], -1)[..., part]
+    inside = (x >= 20) & (x + 20 < w) & (y >= 20) & (y + 20 < h)
+    direct = np.tile(inside & ~outside, 2)  # (n, k, 512)
+    centre = offset + frame * h * w + y * w + x
+    flat = np.where(direct, centre + dy * w + dx, 0)
+    in_patch = (dx >= -20) & (dx < 28) & (dy >= -20) & (dy < 28)
+    gx, gy = x + dx, y + dy
+    in_frame = in_patch & (gx >= 0) & (gx < w) & (gy >= 0) & (gy < h)
+    guarded = np.where(in_frame, imgs[frame, np.clip(gy, 0, h - 1), np.clip(gx, 0, w - 1)], 0)
+    vals = np.where(direct, buf[np.clip(flat, 0, buf.size - 1)], guarded).astype(np.int64)
+    bits = (vals[..., :256] > vals[..., 256:]).reshape(n, -1, 8, 32).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("trig", ["exact_host"], indirect=True)
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("shape,offset", [((2, 64, 200), 0), ((2, 47, 61), 3), ((1, 45, 30), 1),
+                                          ((2, 61, 203), 2)])
+def test_orb_brief_gather_replay_vs_plain_and_jax(trig, shape, offset, split):
+    """K8's gathers (unchecked inside the frame, bounds-tested near or past a
+    border) with a keypoint's words on one warp or split over four, replayed,
+    equal ``orb_brief_plain`` and JAX's ``_brief_single`` (exact-host trig in
+    both packages) at, near and past each border, at every x mod 4, at angles
+    0, +-pi, +-pi/2 and random; and equal ``orb_brief_plain`` for sin and cos
+    off the unit circle, where endpoints pass 20."""
+    n, h, w = shape
+    rng = np.random.default_rng(91 + offset)
+    imgs = rng.integers(0, 256, shape, dtype=np.uint8)
+    pts = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (w // 2, 0), (0, h // 2), (19, 19),
+           (20, 20), (21, 21), (w - 20, h - 20), (w - 21, h - 21), (-1, -1), (w, h), (-20, 5),
+           (-21, 5), (w + 20, 7), (w + 19, 7), (-30, -25), (w + 60, -1), (5, h + 2), (15, 15),
+           (w - 16, h - 16)] + [(24 + i, 22 + i % 3) for i in range(8)]
+    xs = np.array([p[0] for p in pts] + rng.integers(-25, w + 25, 18).tolist(), np.int32)
+    ys = np.array([p[1] for p in pts] + rng.integers(-25, h + 25, 18).tolist(), np.int32)
+    xs, ys = np.stack([xs, xs[::-1]])[:n].copy(), np.stack([ys, ys[::-1]])[:n].copy()
+    special = np.float32([0.0, np.pi, -np.pi, np.pi / 2, -np.pi / 2])
+    angles = np.concatenate([special, rng.uniform(-np.pi, np.pi, xs.shape[1] - len(special))])
+    angles = np.stack([angles, angles[::-1]])[:n].astype(np.float32)
+    a = torch.from_numpy(angles)
+    sin, cos = libm32.sinf(a).numpy(), libm32.cosf_like_reference(a).numpy()
+    got = _orb_brief_replay(imgs, xs, ys, sin, cos, offset, split)
+    t = [torch.from_numpy(v) for v in (imgs, xs, ys, sin, cos)]
+    np.testing.assert_array_equal(got, K.orb_brief_plain(*t).view(torch.int32).numpy()
+                                  .view(np.uint32))
+    single = jax.vmap(_brief_single, in_axes=(None, 0, 0, 0))
+    for f in range(n if split == 1 else 0):  # the split changes no sample: JAX once
+        ref = single(jnp.asarray(imgs[f]), jnp.asarray(xs[f]), jnp.asarray(ys[f]),
+                     jnp.asarray(angles[f]))
+        np.testing.assert_array_equal(got[f], np.asarray(ref).astype(np.uint32))
+    scale = np.float32([1.0, 1.45, 0.5, 1.02, 2.0])[np.arange(xs.shape[1]) % 5]
+    s2, c2 = (sin * scale).astype(np.float32), (cos * scale[::-1]).astype(np.float32)
+    got = _orb_brief_replay(imgs, xs, ys, s2, c2, offset, split)
+    t = [torch.from_numpy(v) for v in (imgs, xs, ys, s2, c2)]
+    np.testing.assert_array_equal(got, K.orb_brief_plain(*t).view(torch.int32).numpy()
+                                  .view(np.uint32))
 
 
 def test_orb_kernels_plain_match_their_wrappers_and_each_other():
