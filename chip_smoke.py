@@ -50,8 +50,9 @@ Then it times the paths with CUDA events, profiles preprocess, detect_faces,
 orb_extract, track, the scanner, config #2, the resize and the sharded
 preprocess (``torch.profiler``: device time by kernel and op, idle share, host
 enqueue time), takes K4's, K6's, K7's, K8's and K9's device time from the
-profiler (K8 also at each of ``track``'s six calls; with ``--parent DIR``, K4
-and K8 of DIR's ``csrc/`` in turns with the committed ones), and
+profiler (K8 also at each of ``track``'s six calls; with ``--parent DIR``, K4,
+K8 and K10 of DIR's ``csrc/`` in turns with the committed ones), K10's at
+``scan``'s call, and
 measures K5's real work: each window's exit stage on two faces frames (the
 plain version with the cascade cut to its first s stages), the weaks a window
 runs and the divergence of 32 neighbouring windows, from which K5's bound is
@@ -191,6 +192,16 @@ WARP_QUADS = {  # on document.pgm (768 wide, 1024 high), tests/test_integral_tem
     "identity": [[0, 0], [767, 0], [767, 1023], [0, 1023]],
     "outside": [[-60, -45], [900, -10], [820, 1200], [-30, 1100]],
 }
+# K10's edges: 65,537 frames (past grid.y's 65,535), sources of one row and of
+# one column, page widths 1 .. 17 and 4k +- 1 on 37 rows (row starts on every
+# byte offset mod 16, tails of a warp's 128 columns), a frame wider than 2^23
+# (floats there are 1 apart), frames of 2^24 + 4 columns and rows
+# (the clamp's float32 bound rounds past the last one: the template with
+# clamped reads) and one of 2^31 + 1 bytes (64-bit offsets)
+WARP_MANY_FRAMES = ((65537, 7, 9), (3, 5))
+WARP_THIN_SOURCES = ((2, 1, 300), (2, 300, 1))
+WARP_EDGE_WIDTHS = tuple(range(1, 18)) + tuple(4 * k + d for k in (8, 50, 200) for d in (-1, 1))
+WARP_WIDE = ((1, 3, 2**23 + 5), (1, 2, 2**24 + 4), (1, 2**24 + 4, 2), (1, 3, 715827883))
 DENSE_KERNELS = ("adaptive", "morph")
 DENSE_N, DENSE_R, DENSE_C = 256, 15, 5
 ADAPTIVE_RADII = (0, 1, 2, 6, 7, 15, 16, 40, 300)
@@ -245,15 +256,17 @@ CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
 # sheet, 700 W) or operations over the issue rate of their kind, whichever is
 # larger.  The issue rates are lanes x SMs x the card's top SM clock
 # (nvidia-smi clocks.max.sm): 128 FP32 lanes an SM, with no FMA (the kernels
-# that round as C does build with -fmad=false), and 64 INT32 lanes.  Rows whose
+# that round as C does build with -fmad=false), 64 INT32 lanes, and 16 type
+# conversions (F2I, I2F) a clock an SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0).  Rows whose
 # operation count is not restated by kind keep the data sheet's FP32 rate, an
 # FMA counted as two ("datasheet").
 # K3's serial chain is a latency, not a rate: "fadd_chain" counts dependent
 # __fadd_rn, each FADD_LATENCY_CYCLES at the top clock (chip_sweep.py --source
 # otsu measures the latency: its fadd_latency line).
 HBM_BYTES_PER_S = 3.35e12
-OP_RATES = {"datasheet": 67e12}  # "fp32", "int32", "fadd_chain" are set by set_op_rates()
-FP32_LANES, INT32_LANES = 128, 64
+OP_RATES = {"datasheet": 67e12}  # the other kinds are set by set_op_rates()
+FP32_LANES, INT32_LANES, CONVERSION_LANES = 128, 64, 16
 FADD_LATENCY_CYCLES = 4  # chip_sweep.py --source otsu: 4.0048828125 on the H100
 
 
@@ -266,13 +279,14 @@ def _wide(t):
 
 
 def set_op_rates():
-    """Fill ``OP_RATES["fp32"]`` and ``["int32"]`` from the card's SMs and top SM clock."""
+    """Fill ``OP_RATES["fp32"]``, ``["int32"]`` and ``["conversion"]`` from the card's SMs
+    and top SM clock."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     hz = float(out.strip().splitlines()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     OP_RATES.update(fp32=FP32_LANES * sms * hz, int32=INT32_LANES * sms * hz,
-                    fadd_chain=hz / FADD_LATENCY_CYCLES)
+                    conversion=CONVERSION_LANES * sms * hz, fadd_chain=hz / FADD_LATENCY_CYCLES)
     return {"sms": sms, "max_sm_clock_mhz": hz / 1e6, **OP_RATES}
 
 
@@ -345,7 +359,8 @@ class WithEntries:
             return getattr(self._committed, name)
 
 
-PARENT_SOURCES = ("integral.cu", "patches.cu")  # K4's and K8's files (K7 shares the second)
+# K4's, K8's and K10's files (K7 shares the second)
+PARENT_SOURCES = ("integral.cu", "patches.cu", "warp.cu")
 
 
 def parent_library(parent):
@@ -362,7 +377,7 @@ def parent_library(parent):
     path = out / "libparent.so"
     _build._run_all([_build.link_command(objs, path)])
     lib = ctypes.CDLL(str(path))
-    for name in ("gs_integral", "gs_orb_moments", "gs_orb_brief"):
+    for name in ("gs_integral", "gs_orb_moments", "gs_orb_brief", "gs_quad_warp"):
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -372,18 +387,20 @@ def parent_library(parent):
 def device_turns(fn, parent):
     """``fn``'s device ms (``device_ms``) with the committed kernels and, given a
     ``parent`` library, with its kernels too, in turns (parent, committed,
-    committed, parent): (committed ms, parent ms or None)."""
+    committed, parent, twice): (the committed median, the parent's median or
+    None).  Now and then one session reads far below the others; a median of
+    four leaves such a reading out."""
     if parent is None:
         return device_ms(fn), None
     committed = _build.library()
     ours, theirs = [], []
     try:
-        for lib in (parent, committed, committed, parent):
+        for lib in (parent, committed, committed, parent) * 2:
             _build._lib = lib
             (theirs if lib is parent else ours).append(device_ms(fn))
     finally:
         _build._lib = committed
-    return statistics.fmean(ours), statistics.fmean(theirs)
+    return statistics.median(ours), statistics.median(theirs)
 
 
 def lena_batch(n, h, w, roll=13):
@@ -1277,12 +1294,59 @@ def phase_scan_kernels(chk, rng, dev):
             chk.same("quad_warp", K.quad_warp(frames, c, page), K.quad_warp_plain(frames, c, page),
                      f"{name} {page}")
         torch.cuda.synchronize()
+    for what, frames, page in warp_edge_cases(rng, dev):
+        c = torch.from_numpy(warp_edge_corners(rng, *frames.shape)).to(dev)
+        chk.same("quad_warp", K.quad_warp(frames, c, page), K.quad_warp_plain(frames, c, page),
+                 what)
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for shape in WARP_WIDE:
+        wide = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8, device=dev)
+        for quad, page in warp_far_quads(*shape[1:]):
+            c = torch.tensor([quad], dtype=torch.int32, device=dev)
+            chk.same("quad_warp", K.quad_warp(wide, c, page), K.quad_warp_plain(wide, c, page),
+                     f"{list(shape)} {quad} {page}")
+        del wide
+        torch.cuda.synchronize()
     emit("scan_kernels_vs_plain", ok=True, ccl_cases=len(cases) + 1,
          ccl_shapes=[list(s) for s in CCL_SHAPES], densities=list(CCL_DENSITIES),
          ccl_widths=list(CCL_WIDTHS), ccl_many_frames=list(CCL_MANY_FRAMES),
          warp_quads=sorted(WARP_QUADS), warp_pages=[list(p) for p in WARP_PAGES],
+         warp_many_frames=[list(s) for s in WARP_MANY_FRAMES],
+         warp_thin_sources=[list(s) for s in WARP_THIN_SOURCES],
+         warp_edge_widths=list(WARP_EDGE_WIDTHS), warp_wide=[list(s) for s in WARP_WIDE],
          full_frame_centroid=want, checks={k: chk.checks[k] for k in ("ccl", "quad_warp")},
          max_abs_err={k: chk.max_err[k] for k in ("ccl", "quad_warp")})
+
+
+def warp_edge_corners(rng, n, sh, sw):
+    """(n, 4, 2) int32 corners of random quads reaching up to half a frame past its edges."""
+    lo, hi = np.array([-(sw // 2) - 2, -(sh // 2) - 2]), np.array([sw + sw // 2 + 2,
+                                                                    sh + sh // 2 + 2])
+    return rng.integers(lo, hi, (n, 4, 2)).astype(np.int32)
+
+
+def warp_far_quads(sh, sw):
+    """(quad, page) pairs on an sh x sw frame: the whole frame, and a quad that
+    reaches 100 pixels past its far corner from 40 pixels inside it."""
+    return (([[0, 0], [sw - 1, 0], [sw - 1, sh - 1], [0, sh - 1]], (5, 1001)),
+            ([[max(sw - 40, 0), max(sh - 40, 0)], [sw + 100, max(sh - 40, 0)], [sw + 100, sh + 100],
+              [max(sw - 40, 0), sh + 100]], (7, 203)))
+
+
+def warp_edge_cases(rng, dev):
+    """(label, frames, page) of K10's edges (WARP_MANY_FRAMES, WARP_THIN_SOURCES,
+    WARP_EDGE_WIDTHS)."""
+    shape, page = WARP_MANY_FRAMES
+    yield (f"{list(shape)} -> {list(page)}",
+           torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev), page)
+    for shape in WARP_THIN_SOURCES:
+        frames = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        for page in ((37, 61), (1, 9), (9, 1)):
+            yield f"{list(shape)} -> {list(page)}", frames, page
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 97, 200), dtype=np.uint8)).to(dev)
+    for dw in WARP_EDGE_WIDTHS:
+        yield f"[2, 97, 200] -> [37, {dw}]", frames, (37, dw)
 
 
 def _scan_batch(frames):
@@ -1379,7 +1443,26 @@ def profile_calls(fn, *args, calls=10, sessions=3):
             "device_ms_by_op": sorted(by_op, key=lambda kv: -kv[1])[:12]}
 
 
-def phase_scan_timing(batch, corners, card):
+# K10's least work (csrc/warp.cu), counted from the code.  A page pixel needs
+# 25 rounded FP32 operations: the two coordinate lerps (6), the clamps (4), dx,
+# dy and their complements (4), and the lerp's 8 products and 3 sums (11).  Its
+# 7 type conversions: the 4 bytes and the 2 truncated coordinates to float run
+# on the FP32 pipe (I2FP), the store's truncation as an FADD.RZ: 7 more; the 2
+# truncations (F2I) at the conversion rate.  A column's u, 1 - u and four edge
+# points (14) count once a frame and column, a row's v and 1 - v (2) once a
+# frame and row.
+WARP_FP32_A_PIXEL, WARP_CONVERSIONS_A_PIXEL = 25 + 7, 2
+WARP_FP32_A_COLUMN, WARP_FP32_A_ROW = 14, 2
+
+
+def warp_ops(n, dh, dw):
+    """K10's operations by kind for ``n`` pages of dh x dw (see WARP_FP32_A_PIXEL)."""
+    return {"fp32": n * (dh * dw * WARP_FP32_A_PIXEL + dw * WARP_FP32_A_COLUMN
+                         + dh * WARP_FP32_A_ROW),
+            "conversion": n * dh * dw * WARP_CONVERSIONS_A_PIXEL}
+
+
+def phase_scan_timing(batch, corners, card, parent=None):
     single = batch[0]
     t_batch = timeit(_scan_batch, batch)
     t_single = timeit(_scan_batch, single)
@@ -1409,7 +1492,7 @@ def phase_scan_timing(batch, corners, card):
                    padding_mode="border", align_corners=True) * 1e3
     del src_f, grid
     # K9: a find per neighbour and a flatten, about 10 operations a pixel;
-    # K10: about 60 FP32 operations (no FMA) and 4 reads a page pixel
+    # K10: warp_ops
     times = {
         "ccl": kernel_entry(timeit(K.ccl, binary) * 1e3,
                             timeit(K.ccl_plain, binary, iters=1, repeat=1) * 1e3,
@@ -1417,7 +1500,7 @@ def phase_scan_timing(batch, corners, card):
         "quad_warp": kernel_entry(
             timeit(K.quad_warp, batch, corners, SCAN_PAGE) * 1e3,
             timeit(K.quad_warp_plain, batch, corners, SCAN_PAGE, iters=3) * 1e3,
-            px + 32 * n + page_px, {"fp32": 60 * page_px}, gs_ms,
+            px + 32 * n + page_px, warp_ops(n, dh, dw), gs_ms,
             "grid_sample(bilinear, align_corners=True) of the float frames at the same "
             "coordinates: not bit-exact"),
     }
@@ -1426,15 +1509,28 @@ def phase_scan_timing(batch, corners, card):
     noise = ((torch.rand(binary.shape, generator=gen, device=batch.device) < 0.55) * 255).to(
         torch.uint8)
     times["ccl"]["device_ms"] = device_ms(lambda: K.ccl(binary))
+    # K10 at scan's call and on one frame, against the parent's in turns when given
+    one = batch[:1]
+    warp_ms, warp_parent_ms = device_turns(lambda: K.quad_warp(batch, corners, SCAN_PAGE), parent)
+    warp_one_ms, warp_one_parent_ms = device_turns(
+        lambda: K.quad_warp(one, corners[:1], SCAN_PAGE), parent)
+    times["quad_warp"].update(device_ms=warp_ms, parent_device_ms=warp_parent_ms,
+                              device_ms_one_frame=warp_one_ms,
+                              parent_device_ms_one_frame=warp_one_parent_ms)
     emit("scan_kernel_device_time", card=card, shape=list(binary.shape),
          device_ms={"ccl": times["ccl"]["device_ms"],
                     "ccl_one_frame": device_ms(lambda: K.ccl(binary[:1])),
-                    "ccl_density_0.55": device_ms(lambda: K.ccl(noise))},
+                    "ccl_density_0.55": device_ms(lambda: K.ccl(noise)),
+                    "quad_warp": warp_ms, "quad_warp_one_frame": warp_one_ms},
+         parent_device_ms={"quad_warp": warp_parent_ms, "quad_warp_one_frame": warp_one_parent_ms},
          device_ms_by_kernel={label: profile_calls(K.ccl, x)["device_ms_by_kernel"]
                               for label, x in (("ccl", binary), ("ccl_one_frame", binary[:1]))},
-         event_ms={"ccl": times["ccl"]["ms"]},
-         source="torch.profiler device events over 20 calls after a warm-up call (by "
-                "kernel: over 10 calls, chip_smoke.profile_calls)")
+         event_ms={"ccl": times["ccl"]["ms"], "quad_warp": times["quad_warp"]["ms"]},
+         quad_warp_bound_ms=times["quad_warp"]["bound_ms"],
+         quad_warp_operations=times["quad_warp"]["operations"],
+         source="torch.profiler device events over 20 calls after a warm-up call; with a "
+                "parent, the median of 4 turns each (parent, committed, committed, parent, "
+                "twice) (by kernel: over 10 calls, chip_smoke.profile_calls)")
     for name, entry in times.items():
         emit("kernel_time", card=card, kernel=name, shape=list(batch.shape), **entry)
     for label, frames in (("scan 8 frames", batch), ("scan 1 frame", single)):
@@ -1717,7 +1813,7 @@ def phase_orb_device_time(frames, times, card, parent=None):
          device_ms=dev, parent_device_ms={"orb_brief": parent_ms},
          event_ms={name: times[name]["ms"] for name in dev}, orb_brief_track_levels=levels,
          source="torch.profiler device events over 20 calls after a warm-up call; with a "
-                "parent, the mean of 2 turns each (parent, committed, committed, parent)")
+                "parent, the median of 4 turns each (parent, committed, committed, parent, twice)")
 
 
 def phase_cli(dev):
@@ -1988,8 +2084,8 @@ def phase_sharded_timing(batch, card):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="an earlier commit's tree: its K4 and K8 are timed beside "
-                                     "the committed ones by the profiler, in turns")
+    ap.add_argument("--parent", help="an earlier commit's tree: its K4, K8 and K10 are timed "
+                                     "beside the committed ones by the profiler, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2026,7 +2122,7 @@ def main():
     times.update(phase_faces_timing(faces_batch, card, phase_faces_work(faces_batch), parent))
     times.update(phase_orb_timing(orb_frames, card))
     phase_orb_device_time(orb_frames, times, card, parent)
-    times.update(phase_scan_timing(scan_batch, scan_corners, card))
+    times.update(phase_scan_timing(scan_batch, scan_corners, card, parent))
     del scan_batch, faces_batch, orb_frames
     times.update(phase_dense_timing(dense_batch, dense_binary, card))
 

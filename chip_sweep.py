@@ -4,7 +4,7 @@
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
     python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu,patches,ccl,
-                                     integral}]
+                                     integral,warp}]
                           [--parent DIR ...] [--only NAME ...]
 
 It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
@@ -122,6 +122,25 @@ label work (timed, not checked); on scan's 8 document binaries, one of them and 
 random frames of 1024x768 at density 0.55, and the whole 8-frame ``scan``
 with each variant's K9.  Device time too.
 
+``--source warp``: K10's page rows a thread walks (``kRows``: 4, 16), its
+columns a thread (``kCols``: 1, 2, 8; 2 with 4 rows), the right and lower
+neighbours of the last column and row read unchecked in every frame but the
+last (``_warp_unguarded``), a thread on kCols adjacent columns with 4-byte
+stores in place of columns 32 apart (``_warp_adjacent``), each row's v and 1
+- v computed by each thread in place of the block's shared table, the float
+tricks in place of type conversions (a byte as 2^23 + b less 2^23,
+``BYTE_TRICK``; a coordinate's truncation by ``__fadd_rz(s, 2^23)``,
+``TRUNC_TRICK``; both; and F2I in place of the store's trick,
+``NO_STORE_TRICK``), the kernel's first design (adjacent columns, unguarded,
+all three tricks), the gathers as the aligned 4-byte words holding x0 and x0
++ 1, funnel-shifted (``WORD_GATHERS``), each block's source footprint staged
+in shared memory when it fits (``STAGED_FOOTPRINT``), and three ablations (the
+stores alone; the coordinates and the lerp without gathers; the coordinates
+and gathers without the lerp); on ``scan``'s call (8 frames of document.pgm
+to 1000x800 pages with the corners ``scan`` finds), one of its frames, the
+steep and extreme quads of ``chip_smoke.WARP_QUADS`` on the 8 frames, the
+(347, 200) page, and 2 frames to a 4000x3000 page.  Device time too.
+
 Each phase prints one JSON line; the last line is ``{"ok": true, ...}``.
 """
 
@@ -140,6 +159,7 @@ import torch
 from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FACES_H, FACES_N, FACES_W, FILTER_TAPS,
                         MAIN_H, MAIN_N, MAIN_R, MAIN_W,
                         ORB_CAP, ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_CAP, SCAN_N, SCAN_PAGE,
+                        WARP_QUADS,
                         WithEntries, _aruco, alternate_windows, brief_args, card_line, device_ms,
                         document_batch, lena_batch, receipt_batch, track_levels)
 import grayskull_tpu_torch as gt
@@ -1486,9 +1506,297 @@ def integral_cases(dev):
     return cases, library
 
 
+WARP_PIXEL_CALL_START = "      const uint8_t b = warp_pixel<kWide>("
+WARP_GATHERS_START = "  const uint32_t b00 = p[0];"
+WARP_LERP_START = "  // lerp\n"
+WARP_PIXEL_END = "}\n\n// A thread's columns"
+WARP_WALK_START = "// A thread's columns x_first + 32 j"
+WARP_KERNEL_START = "// grid (n * tiles_y, min(tiles_x, 65535)), block (gx, ry)"
+
+# K10's gathers as the aligned words that hold x0 and x0 + 1 of rows y0 and y1,
+# funnel-shifted; the next word is read only when x0 is its word's last byte
+# and x0 + 1 is read (a word that holds a byte of the frame lies in the
+# frame's aligned storage)
+WORD_GATHERS = r"""  const uintptr_t a0 = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t a1 = a0 + sw;
+  const uint32_t* w0 = reinterpret_cast<const uint32_t*>(a0 & ~uintptr_t{3});
+  const uint32_t* w1 = reinterpret_cast<const uint32_t*>(a1 & ~uintptr_t{3});
+  const uint32_t top = __funnelshift_r(w0[0], right && (a0 & 3) == 3 ? w0[1] : 0u,
+                                       static_cast<unsigned>(a0 & 3) * 8);
+  const uint32_t bot = below ? __funnelshift_r(w1[0], right && (a1 & 3) == 3 ? w1[1] : 0u,
+                                               static_cast<unsigned>(a1 & 3) * 8)
+                             : 0u;
+  const uint32_t b00 = top & 255u, b01 = (top >> 8) & 255u;
+  const uint32_t b10 = bot & 255u, b11 = (bot >> 8) & 255u;
+"""
+
+# K10 with a thread on kCols adjacent columns (in place of columns 32 apart),
+# its bytes of a row stored as one 4-byte word where they lie in the row and
+# the word is aligned, else a byte each
+ADJACENT_STORE = r"""// the low bytes of b[0 .. 3] as one little-endian word
+__device__ __forceinline__ uint32_t pack4(const uint32_t* b) {
+  return __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
+}
+
+__device__ __forceinline__ void store_cols(uint8_t* p, const uint32_t (&b)[kCols], int left) {
+  static_assert(kCols == 4, "one 4-byte store");
+  if (left >= kCols && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(p) = pack4(b);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    if (j < left) p[j] = static_cast<uint8_t>(b[j]);
+  }
+}
+
+"""
+
+
+def _warp_adjacent(s):
+    s = edit(s, "    const unsigned x_first = (tile_x * blockDim.x + threadIdx.x - lane) * kCols"
+                " + lane;",
+             "    const unsigned x_first = (tile_x * blockDim.x + threadIdx.x) * kCols;",
+             "      const float u = __fdiv_rn(static_cast<float>(x_first + 32 * j), dwm1);",
+             "      const float u = __fdiv_rn(static_cast<float>(x_first + j), dwm1);",
+             "      const uint8_t b = warp_pixel<kWide>(",
+             "      out[j] = warp_pixel<kWide>(",
+             "      if (32 * j < left) row[32 * j] = b;\n    }\n",
+             "    }\n    store_cols(row, out, left);\n",
+             "    uint8_t* row = page + static_cast<size_t>(y) * dw + x_first;\n",
+             "    uint8_t* row = page + static_cast<size_t>(y) * dw + x_first;\n"
+             "    uint32_t out[kCols];\n")
+    return edit(s, WARP_WALK_START, ADJACENT_STORE + WARP_WALK_START)
+
+
+# K10's three float tricks in place of type conversions: a byte as 2^23 + b
+# less 2^23 (exact), a clamped coordinate's truncation as __fadd_rz(s, 2^23)
+# (exact for 0 <= s < 2^23, so a committed version would need F2I for wider
+# frames), the stored sum's by F2I
+BYTE_TRICK = lambda s: edit(  # noqa: E731
+    s, "  return static_cast<float>(b);\n",
+    "  return __fsub_rn(__uint_as_float(0x4B000000u | b), kTwo23);  // exact: b < 2^23\n")
+TRUNC_TRICK = lambda s: edit(  # noqa: E731
+    s, "  const int i = __float2int_rz(s);\n  whole = static_cast<float>(i);\n  return i;\n",
+    "  const float t = __fadd_rz(s, kTwo23);  // 2^23 + trunc(s) for 0 <= s < 2^23\n"
+    "  whole = __fsub_rn(t, kTwo23);\n"
+    "  return static_cast<int>(__float_as_uint(t) - 0x4B000000u);\n")
+NO_STORE_TRICK = lambda s: edit(  # noqa: E731
+    s, "  return static_cast<uint8_t>(__float_as_uint(__fadd_rz(sum, kTwo23)));\n",
+    "  return static_cast<uint8_t>(__float2uint_rz(sum));\n")
+
+
+# K10 reading the right (lower) neighbour of the last column (row) unchecked in
+# every frame but the last (and for one-row frames the one before): it lies in
+# the next frame, and its weight is 0
+def _warp_unguarded(s):
+    walk = ("walk_rows<kWide{}>(s, page, row_terms, sh, sw, dh, dw, y_first, x_first, top_x,"
+            " top_y,\n{}bot_x, bot_y);")
+    s = edit(s, "template <bool kWide>\n__device__ __forceinline__ uint8_t warp_pixel(",
+             "template <bool kWide, bool kGuard>\n__device__ __forceinline__ uint8_t warp_pixel(",
+             "  const bool right = x0 < swm1, below = y0 < shm1;",
+             "  const bool right = !kGuard || x0 < swm1, below = !kGuard || y0 < shm1;",
+             "in the rows of its tile.\ntemplate <bool kWide>",
+             "in the rows of its tile.\ntemplate <bool kWide, bool kGuard>",
+             "warp_pixel<kWide>(s, sw,", "warp_pixel<kWide, kGuard>(s, sw,",
+             "uint8_t* __restrict__ dst, int sh, int sw,",
+             "uint8_t* __restrict__ dst, int n, int sh, int sw,",
+             "    walk_rows<kWide>(s, page, row_terms, sh, sw, dh, dw, y_first, x_first, top_x, "
+             "top_y, bot_x,\n                     bot_y);",
+             "    if (f + (sh > 1 ? 1 : 2) >= n) {\n      " + walk.format(", true", " " * 29)
+             + "\n    } else {\n      " + walk.format(", false", " " * 30) + "\n    }")
+    return replace_n(s, "<<<grid, block, 0, st>>>(s, c, d, sh,",
+                     "<<<grid, block, 0, st>>>(s, c, d, n, sh,", 2)
+
+# K10 with each block's source footprint staged in shared memory: the box around
+# the coordinates of the tile's four corners (the map is bilinear in u and v, so
+# its extremes lie there), 2 pixels wider each side for rounding, clamped to the
+# frame; a tile whose box holds more than kStageBytes takes the gathers
+STAGED_FOOTPRINT = r"""constexpr int kStageBytes = 24576;
+
+template <bool kWide>
+__device__ __forceinline__ uint8_t staged_pixel(const uint8_t* stage, int bx0, int by0, int bw,
+                                                int swm1, int shm1, float swm1f, float shm1f,
+                                                float top_x, float top_y, float bot_x,
+                                                float bot_y, float v, float omv) {
+  const float sx = clamp_coord(edge(top_x, bot_x, v, omv), swm1f);
+  const float sy = clamp_coord(edge(top_y, bot_y, v, omv), shm1f);
+  float fx0, fy0;
+  const int x0 = truncate(sx, fx0);
+  const int y0 = truncate(sy, fy0);
+  const float dx = __fsub_rn(sx, fx0);
+  const float dy = __fsub_rn(sy, fy0);
+  const float omdx = __fsub_rn(1.0f, dx);
+  const float omdy = __fsub_rn(1.0f, dy);
+  const int o = (y0 - by0) * bw + (x0 - bx0);
+  const bool right = x0 < swm1, below = y0 < shm1;
+  const uint32_t b00 = stage[o];
+  const uint32_t b01 = right ? stage[o + 1] : 0u;
+  const uint32_t b10 = below ? stage[o + bw] : 0u;
+  const uint32_t b11 = right && below ? stage[o + bw + 1] : 0u;
+  const float t1 = __fmul_rn(__fmul_rn(byte_to_float(b00), omdx), omdy);
+  const float t2 = __fmul_rn(__fmul_rn(byte_to_float(b01), dx), omdy);
+  const float t3 = __fmul_rn(__fmul_rn(byte_to_float(b10), omdx), dy);
+  const float t4 = __fmul_rn(__fmul_rn(byte_to_float(b11), dx), dy);
+  return store_byte(__fadd_rn(__fadd_rn(__fadd_rn(t1, t2), t3), t4));
+}
+
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads)
+quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corners,
+                 uint8_t* __restrict__ dst, int sh, int sw, int dh, int dw, int tiles_y,
+                 int tiles_x) {
+  __shared__ float quad[8];
+  __shared__ float2 row_terms[kThreads / 32 * kRows];
+  __shared__ uint8_t stage[kStageBytes];
+  const int f = blockIdx.x / tiles_y;
+  const unsigned span = blockDim.y * kRows;
+  const unsigned y_first = (blockIdx.x - f * tiles_y) * span;
+  const unsigned tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if (tid < 8) quad[tid] = static_cast<float>(corners[static_cast<long long>(f) * 8 + tid]);
+  const float dhm1 = static_cast<float>(dh - 1);
+  for (unsigned i = tid; i < span; i += blockDim.x * blockDim.y) {
+    const float v = __fdiv_rn(static_cast<float>(y_first + i), dhm1);
+    row_terms[i] = make_float2(v, __fsub_rn(1.0f, v));
+  }
+  __syncthreads();
+  const uint8_t* s = src + static_cast<long long>(f) * sh * sw;
+  uint8_t* page = dst + static_cast<long long>(f) * dh * dw;
+  const float dwm1 = static_cast<float>(dw - 1);
+  const float swm1f = static_cast<float>(sw) - 1.0f, shm1f = static_cast<float>(sh) - 1.0f;
+  const float tl_x = quad[0], tl_y = quad[1], tr_x = quad[2], tr_y = quad[3];
+  const float br_x = quad[4], br_y = quad[5], bl_x = quad[6], bl_y = quad[7];
+  const unsigned y_last = min(y_first + span, static_cast<unsigned>(dh)) - 1;
+  const unsigned lane = threadIdx.x & 31u;
+  for (unsigned tile_x = blockIdx.y; tile_x < static_cast<unsigned>(tiles_x);
+       tile_x += gridDim.y) {
+    const unsigned xt0 = tile_x * blockDim.x * kCols;
+    const unsigned xt1 = min(xt0 + blockDim.x * kCols, static_cast<unsigned>(dw)) - 1;
+    float lo_x = 3.0e38f, hi_x = 0.0f, lo_y = 3.0e38f, hi_y = 0.0f;
+    for (int ci = 0; ci < 4; ++ci) {
+      const float u = __fdiv_rn(static_cast<float>(ci & 1 ? xt1 : xt0), dwm1);
+      const float v = __fdiv_rn(static_cast<float>(ci & 2 ? y_last : y_first), dhm1);
+      const float omu = __fsub_rn(1.0f, u), omv = __fsub_rn(1.0f, v);
+      const float cx = clamp_coord(edge(edge(tl_x, tr_x, u, omu), edge(bl_x, br_x, u, omu), v, omv),
+                                   swm1f);
+      const float cy = clamp_coord(edge(edge(tl_y, tr_y, u, omu), edge(bl_y, br_y, u, omu), v, omv),
+                                   shm1f);
+      lo_x = fminf(lo_x, cx);
+      hi_x = fmaxf(hi_x, cx);
+      lo_y = fminf(lo_y, cy);
+      hi_y = fmaxf(hi_y, cy);
+    }
+    const int bx0 = max(0, static_cast<int>(lo_x) - 2), by0 = max(0, static_cast<int>(lo_y) - 2);
+    const int bx1 = min(sw - 1, static_cast<int>(hi_x) + 2);
+    const int by1 = min(sh - 1, static_cast<int>(hi_y) + 2);
+    const int bw = bx1 - bx0 + 1, bh = by1 - by0 + 1;
+    const bool staged = static_cast<long long>(bw) * bh <= kStageBytes;
+    if (staged) {
+      __syncthreads();  // the last tile's reads of the stage are done
+      for (int r = threadIdx.y; r < bh; r += blockDim.y) {
+        const uint8_t* row = s + static_cast<size_t>(by0 + r) * sw + bx0;
+        for (int c = threadIdx.x; c < bw; c += blockDim.x) stage[r * bw + c] = row[c];
+      }
+      __syncthreads();
+    }
+    const unsigned x_first = (tile_x * blockDim.x + threadIdx.x - lane) * kCols + lane;
+    if (x_first >= static_cast<unsigned>(dw)) continue;
+    float top_x[kCols], top_y[kCols], bot_x[kCols], bot_y[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const float u = __fdiv_rn(static_cast<float>(x_first + 32 * j), dwm1);
+      const float omu = __fsub_rn(1.0f, u);
+      top_x[j] = edge(tl_x, tr_x, u, omu);
+      top_y[j] = edge(tl_y, tr_y, u, omu);
+      bot_x[j] = edge(bl_x, br_x, u, omu);
+      bot_y[j] = edge(bl_y, br_y, u, omu);
+    }
+    if (!staged) {
+      walk_rows<kWide>(s, page, row_terms, sh, sw, dh, dw, y_first, x_first, top_x, top_y,
+                       bot_x, bot_y);
+      continue;
+    }
+    const int left = dw - static_cast<int>(x_first);
+    for (int k = 0; k < kRows; ++k) {
+      const unsigned r = threadIdx.y + k * blockDim.y;
+      const unsigned y = y_first + r;
+      if (y >= static_cast<unsigned>(dh)) break;
+      const float2 t = row_terms[r];
+      uint8_t* row = page + static_cast<size_t>(y) * dw + x_first;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const uint8_t b = staged_pixel<kWide>(stage, bx0, by0, bw, sw - 1, sh - 1, swm1f, shm1f,
+                                              top_x[j], top_y[j], bot_x[j], bot_y[j], t.x, t.y);
+        if (32 * j < left) row[32 * j] = b;
+      }
+    }
+  }
+}
+
+"""
+
+WARP_VARIANTS = {
+    "committed": lambda s: s,
+    **{f"rows{r}": const("kRows", r) for r in (4, 16)},
+    **{f"cols{c}": const("kCols", c) for c in (1, 2, 8)},
+    "cols2_rows4": chain(const("kCols", 2), const("kRows", 4)),
+    "unguarded": _warp_unguarded,
+    "adjacent": _warp_adjacent,
+    "row_terms_a_thread": lambda s: edit(
+        s, "    const float2 t = row_terms[r];\n",
+        "    const float tv = __fdiv_rn(static_cast<float>(y), static_cast<float>(dh - 1));\n"
+        "    const float2 t = make_float2(tv, __fsub_rn(1.0f, tv));\n"),
+    "byte_trick": BYTE_TRICK,
+    "trunc_trick": TRUNC_TRICK,
+    "no_store_trick": NO_STORE_TRICK,
+    "all_tricks": chain(BYTE_TRICK, TRUNC_TRICK),
+    # the first design of this kernel: adjacent columns, unguarded, all three tricks
+    "adjacent_unguarded_all_tricks": chain(_warp_adjacent, _warp_unguarded, BYTE_TRICK,
+                                           TRUNC_TRICK),
+    "word_gathers": lambda s: replace_span(s, WARP_GATHERS_START, WARP_LERP_START, WORD_GATHERS),
+    "staged_footprint": lambda s: replace_span(s, WARP_KERNEL_START, "}  // namespace",
+                                               STAGED_FOOTPRINT),
+}
+# K10's stages alone (timed, not checked): the stores of a value made from the
+# pixel's place; the coordinates and lerp on samples made from (x0, y0) with
+# no gathers; the coordinates and gathers with the samples' sum stored, no lerp
+WARP_ABLATIONS = {
+    "ablate_stores_only": lambda s: replace_span(
+        s, WARP_PIXEL_CALL_START, "      if (32 * j < left)",
+        "      const uint8_t b = static_cast<uint8_t>(x_first + 32 * j + y);\n"),
+    "ablate_no_gathers": lambda s: replace_span(
+        s, WARP_GATHERS_START, WARP_LERP_START,
+        "  const uint32_t b00 = x0 & 255, b01 = y0 & 255, b10 = (x0 ^ y0) & 255;\n"
+        "  const uint32_t b11 = (x0 + y0) & 255;\n  (void)p, (void)right, (void)below;\n"),
+    "ablate_no_lerp": lambda s: replace_span(
+        s, WARP_LERP_START, WARP_PIXEL_END,
+        "  return b00 + b01 + b10 + b11 + (__float_as_uint(omdx) ^ __float_as_uint(omdy));\n"),
+}
+
+
+def warp_cases(dev):
+    """K10 at scan's call (the 8 document frames and the corners scan finds, to
+    1000x800 pages), on one of its frames, the steep and extreme quads of
+    chip_smoke.WARP_QUADS on the 8 frames, the (347, 200) page, and 2 frames to
+    a 4000x3000 page."""
+    frames = torch.from_numpy(document_batch(SCAN_N)).to(dev)
+    corners = gt.scan(frames, SCAN_PAGE, SCAN_CAP)[1]
+    calls = {f"scan_{SCAN_N}": (frames, corners, SCAN_PAGE),
+             "scan_1": (frames[:1], corners[:1], SCAN_PAGE)}
+    for name in ("steep", "extreme"):
+        quad = torch.tensor(WARP_QUADS[name], dtype=torch.int32, device=dev)
+        calls[f"{name}_{SCAN_N}"] = (frames, quad.expand(SCAN_N, 4, 2).contiguous(), SCAN_PAGE)
+    calls[f"page_347x200_{SCAN_N}"] = (frames, corners, (347, 200))
+    calls["page_4000x3000_2"] = (frames[:2], corners[:2], (4000, 3000))
+    cases = {f"quad_warp_{label}": (x.shape, lambda a=(x, c, p): K.quad_warp(*a),
+                                    lambda a=(x, c, p): K.quad_warp_plain(*a))
+             for label, (x, c, p) in calls.items()}
+    return cases, {}
+
+
 # sources whose kernels are short enough that back-to-back calls may time the
 # host: their variants are also timed by the profiler's device events
-DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl", "integral")
+DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl", "integral", "warp")
 
 SOURCES = {
     "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
@@ -1506,6 +1814,8 @@ SOURCES = {
     "integral": ("integral.cu", ("gs_integral",), INTEGRAL_VARIANTS, INTEGRAL_ABLATIONS,
                  integral_cases, r"band|carry|Used"),
     "ccl": ("ccl.cu", ("gs_ccl",), CCL_VARIANTS, CCL_ABLATIONS, ccl_cases, r"tile|border|flatten|merge|init|Used"),
+    "warp": ("warp.cu", ("gs_quad_warp",), WARP_VARIANTS, WARP_ABLATIONS, warp_cases,
+             r"quad_warp|Used"),
 }
 # (kernel, library call) pairs that every variant is also timed against in
 # chip_smoke.alternate_windows, variants in order and then in reverse

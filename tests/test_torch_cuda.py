@@ -700,6 +700,41 @@ def test_quad_warp_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_quad_warp_tiles_and_tails_on_card(cuda_device):
+    """K10's tiles and stores: page widths 1 .. 17 and 4k +- 1 (rows that start
+    on every byte offset mod 16, tails of a warp's 128 columns), sources of one
+    row and one column, 65,537 frames (past grid.y's 65,535), a frame wider
+    than 2^23, frames of 2^24 + 4 columns and rows with quads past their far
+    edge (the template with clamped reads) and a frame of 2^31 + 1 bytes."""
+    rng = np.random.default_rng(53)
+
+    def quads(n, sh, sw):
+        lo, hi = (-(sw // 2) - 2, -(sh // 2) - 2), (sw + sw // 2 + 2, sh + sh // 2 + 2)
+        return torch.from_numpy(rng.integers(lo, hi, (n, 4, 2)).astype(np.int32)).to(cuda_device)
+
+    cases = [(_frames((2, 97, 200), 54, cuda_device), (37, w))
+             for w in list(range(1, 18)) + [4 * k + d for k in (8, 50, 200) for d in (-1, 1)]]
+    for shape in ((2, 1, 300), (2, 300, 1)):
+        cases += [(_frames(shape, 55, cuda_device), page) for page in ((37, 61), (1, 9), (9, 1))]
+    cases.append((_frames((65537, 7, 9), 56, cuda_device), (3, 5)))
+    for src, size in cases:
+        c = quads(*src.shape)
+        got = K.quad_warp(src, c, size)
+        assert got.is_cuda and torch.equal(got, K.quad_warp_plain(src, c, size)), (src.shape, size)
+    gen = torch.Generator(device=cuda_device).manual_seed(57)
+    for shape in ((1, 3, 2**23 + 5), (1, 2, 2**24 + 4), (1, 2**24 + 4, 2), (1, 3, 715827883)):
+        wide = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8, device=cuda_device)
+        sh, sw = shape[1:]
+        for q, size in (([[0, 0], [sw - 1, 0], [sw - 1, sh - 1], [0, sh - 1]], (5, 1001)),
+                        ([[max(sw - 40, 0), max(sh - 40, 0)], [sw + 100, max(sh - 40, 0)],
+                          [sw + 100, sh + 100], [max(sw - 40, 0), sh + 100]], (7, 203))):
+            c = torch.tensor([q], dtype=torch.int32, device=cuda_device)
+            got = K.quad_warp(wide, c, size)
+            assert torch.equal(got, K.quad_warp_plain(wide, c, size)), (shape, q, size)
+        del wide
+
+
+@pytest.mark.cuda
 def test_scan_launches_its_kernels_on_card(cuda_device):
     doc = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/document.pgm")
     frames = torch.from_numpy(np.stack([np.roll(doc, 3 * i, axis=1) for i in range(3)]))
