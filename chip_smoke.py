@@ -44,25 +44,36 @@ counts set to 0 just before it and read just after:
   ``integral_sharded`` and ``scan_sharded``, each against its single-device
   entry point, and two frames against the plain path on the CPU;
 * the bandwidth probe (``grayskull_tpu_torch.profiling.hbm_bandwidth_gbps``,
-  K17 ``copy`` and K18 ``triad`` over 256 MiB).
+  K17 ``copy`` and K18 ``triad`` over 256 MiB);
+* template matching and contours: ``match_template`` + ``find_best_match`` on
+  64 frames of lena tiled to 480x640 (frame i rolled 11*i columns) with a
+  32x32 template, ``parallel.match_template_sharded`` over (1, 4) and (2, 4)
+  meshes with templates shorter than, as tall as and taller than a shard,
+  ``find_contours``, ``largest_blob_contour`` and ``trace_contour`` (with and
+  without a carried mask) on ``benchmarks/bench_all.py``'s 12-rectangle frame,
+  each against the plain path on the CPU, and the goldens ``match_template``,
+  ``contour1``, ``contour2``, ``contour_visited`` and ``largest_contour``.
 
 Then it times the paths with CUDA events, profiles preprocess, detect_faces,
-orb_extract, track, the scanner, config #2, the resize and the sharded
-preprocess (``torch.profiler``: device time by kernel and op, idle share, host
-enqueue time), takes K4's, K6's, K7's, K8's and K9's device time from the
+orb_extract, track, the scanner, config #2, the resize, the sharded
+preprocess and the template and contour entry points (``torch.profiler``:
+device time by kernel and op, idle share, host enqueue time), takes K4's, K6's, K7's, K8's and K9's device time from the
 profiler (K8 also at each of ``track``'s six calls; with ``--parent DIR``, K4,
 K8 and K10 of DIR's ``csrc/`` in turns with the committed ones), K10's at
 ``scan``'s call, and
 measures K5's real work: each window's exit stage on two faces frames (the
 plain version with the cascade cut to its first s stages), the weaks a window
 runs and the divergence of 32 neighbouring windows, from which K5's bound is
-counted.
+counted; K20's bound is its walks' steps times one dependent shared-memory
+load (``SHARED_LOAD_LATENCY_CYCLES``, which ``chip_sweep.py --source contour``
+measures).  K19's is its correlation's byte products at the int8 tensor rate.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
 time, and its bound again at the measured copy rate, ``bound_ms_at_copy``;
 operations are counted by kind, FP32 or INT32, at the issue rate of their
-kind from the card's SM count and top clock, where a row has restated them)
+kind from the card's SM count and top clock, or int8 products at the tensor
+cores' rate, where a row has restated them)
 and the card's ``nvidia-smi`` name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
 non-zero; without a CUDA device it exits 1 and prints no result.
@@ -88,7 +99,7 @@ import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch import libm32
 from grayskull_tpu_torch.io import read_pgm
-from grayskull_tpu_torch.core import LbpCascade
+from grayskull_tpu_torch.core import LbpCascade, host_arrays_to
 from grayskull_tpu_torch.kernels import _build
 from grayskull_tpu_torch.kernels.integral import u32_to_int64
 from grayskull_tpu_torch.kernels.warp import warp_grid
@@ -160,6 +171,10 @@ KERNELS = {
              "replaces": "grayskull_tpu/profiling.py:56"},
     "triad": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/bandwidth.cu",
               "replaces": "grayskull_tpu/profiling.py:61"},
+    "match_template": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/template.cu",
+                       "replaces": "grayskull_tpu/ops/template.py:30"},
+    "contour": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/contour.cu",
+                "replaces": "grayskull_tpu/ops/contour.py:36"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
@@ -261,13 +276,18 @@ CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
 # instruction throughput, compute capability 9.0).  Rows whose
 # operation count is not restated by kind keep the data sheet's FP32 rate, an
 # FMA counted as two ("datasheet").
-# K3's serial chain is a latency, not a rate: "fadd_chain" counts dependent
-# __fadd_rn, each FADD_LATENCY_CYCLES at the top clock (chip_sweep.py --source
-# otsu measures the latency: its fadd_latency line).
+# "int8_tensor" is the data sheet's dense int8 tensor-core rate (a multiply-add
+# counted as two), the peak for products of bytes summed into int32.
+# K3's and K20's serial chains are latencies, not rates: "fadd_chain" counts
+# dependent __fadd_rn, each FADD_LATENCY_CYCLES at the top clock, and
+# "shared_load_chain" dependent shared-memory loads, each
+# SHARED_LOAD_LATENCY_CYCLES (chip_sweep.py measures both: the fadd_latency
+# line of --source otsu and the load_latency line of --source contour).
 HBM_BYTES_PER_S = 3.35e12
-OP_RATES = {"datasheet": 67e12}  # the other kinds are set by set_op_rates()
+OP_RATES = {"datasheet": 67e12, "int8_tensor": 1979e12}  # the others: set_op_rates()
 FP32_LANES, INT32_LANES, CONVERSION_LANES = 128, 64, 16
 FADD_LATENCY_CYCLES = 4  # chip_sweep.py --source otsu: 4.0048828125 on the H100
+SHARED_LOAD_LATENCY_CYCLES = 28.625  # chip_sweep.py --source contour on the H100
 
 
 def emit(phase, **kv):
@@ -279,14 +299,15 @@ def _wide(t):
 
 
 def set_op_rates():
-    """Fill ``OP_RATES["fp32"]``, ``["int32"]`` and ``["conversion"]`` from the card's SMs
-    and top SM clock."""
+    """Fill ``OP_RATES["fp32"]``, ``["int32"]``, ``["conversion"]`` and the chains'
+    rates from the card's SMs and top SM clock."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     hz = float(out.strip().splitlines()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     OP_RATES.update(fp32=FP32_LANES * sms * hz, int32=INT32_LANES * sms * hz,
-                    conversion=CONVERSION_LANES * sms * hz, fadd_chain=hz / FADD_LATENCY_CYCLES)
+                    conversion=CONVERSION_LANES * sms * hz, fadd_chain=hz / FADD_LATENCY_CYCLES,
+                    shared_load_chain=hz / SHARED_LOAD_LATENCY_CYCLES)
     return {"sms": sms, "max_sm_clock_mhz": hz / 1e6, **OP_RATES}
 
 
@@ -1674,11 +1695,12 @@ def phase_dense_path(chk, dev):
     return batch, out, launches
 
 
-def device_ms(fn, calls=20, sessions=3):
+def device_ms(fn, calls=20, sessions=3, kernel=None):
     """Device time of one call of ``fn()`` from ``torch.profiler`` (device events
-    only, summed over the kernels it launches), after one warm-up call.  Now and
-    then a profiler session records no device events at all; such a session is
-    run again, up to ``sessions`` in all."""
+    only, summed over the kernels it launches, or over those whose name holds
+    ``kernel``), after one warm-up call.  Now and then a profiler session
+    records no device events at all; such a session is run again, up to
+    ``sessions`` in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1689,7 +1711,8 @@ def device_ms(fn, calls=20, sessions=3):
                 fn()
             torch.cuda.synchronize()
         total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and (kernel is None or kernel in e.name))
         if total > 0:
             return total / 1e3 / calls
     raise AssertionError(f"the profiler saw no device time in {sessions} sessions")
@@ -2081,6 +2104,348 @@ def phase_sharded_timing(batch, card):
     emit("memory", card=card, peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
     return times
 
+# ---- K19 match_template and K20 contour ----------------------------------------------------
+# benchmarks/bench_all.py:233-266: 64 frames of 480x640 (lena tiled, frame i rolled 11*i
+# columns) and the 32x32 template at rows 200-231, columns 300-331 of frame 0; the
+# 12-rectangle frame for the contour entry points
+MATCH_N, MATCH_H, MATCH_W, MATCH_ROLL = 64, 480, 640, 11
+MATCH_TMPL = (slice(200, 232), slice(300, 332))
+CONTOUR_CAP, CONTOUR_BLOBS = 16, 64
+# (frames, template) shapes: odd widths, tw % 4 of 0-3, a 1x1 map, a 1x1 template,
+# 66,049 and 66,051 template pixels (past the default 48 KB of shared memory), a
+# template staged in two chunks (24,577 rows of one word), frames past grid.z's 65,535
+TEMPLATE_CASES = [((2, 30, 41), (5, 7)), ((3, 17, 131), (4, 8)), ((1, 30, 41), (30, 41)),
+                  ((2, 9, 258), (1, 1)), ((2, 40, 300), (13, 17)), ((4, 33, 129), (6, 10)),
+                  ((2, 100, 150), (32, 32)), ((70000, 3, 5), (2, 3))]
+TEMPLATE_LIMIT_CASES = [((1, 260, 300), (257, 257)), ((1, 12, 7400), (9, 7339)),
+                        ((1, 24600, 2), (24577, 1))]
+TEMPLATE_OFFSETS = (0, 1, 3)
+def _rects(h, w, rects, value=255):
+    img = np.zeros((h, w), np.uint8)
+    for y0, x0, y1, x1 in rects:
+        img[y0:y1, x0:x1] = value
+    return img
+
+
+def twelve_blobs():
+    """``benchmarks/bench_all.py:255-258``: 12 rectangles of 80 x 100 on 480 x 640."""
+    return _rects(480, 640, [(120 * r + 20, 160 * c + 30, 120 * r + 100, 160 * c + 130)
+                             for r in range(3) for c in range(4)])
+
+
+def contour_frames(rng):
+    """(name, frame, table capacity): K20's edge cases."""
+    gray = _rects(40, 48, [(2, 2, 20, 20), (25, 5, 35, 40)])
+    gray[2, 2:9] = 128  # blob pixels that are not contour foreground; a first pixel of 128
+    gray[25:35, 20] = 128
+    nested = _rects(48, 48, [(2, 2, 46, 46)])
+    nested[8:40, 8:40] = 0
+    nested[14:34, 14:34] = 255
+    nested[20:28, 20:28] = 0
+    nested[23:25, 23:25] = 255
+    diagonal = _rects(20, 30, [(2, 2, 12, 12), (12, 12, 18, 25), (2, 14, 8, 20)])
+    dots = np.zeros((40, 48), np.uint8)
+    dots[1::3, 1::3] = 255  # more seeds than the capacity
+    one = np.zeros((9, 9), np.uint8)
+    one[4, 4] = 255
+    # past the shared-memory bitmaps (0.93 MP): K20 walks the bytes
+    big = _rects(965, 965, [(10, 20, 300, 500), (400, 600, 960, 900), (0, 0, 1, 1)])
+    big[500:520, 700:720] = 0
+    return [("spiral_40x128", spiral(40, 128), 64), ("snake", snake(), 64),
+            ("noise_12x12", ((np.random.default_rng(0).random((12, 12)) > 0.45) * 255).astype(
+                np.uint8), 64),
+            ("noise_20x24", ((rng.random((20, 24)) > 0.5) * 255).astype(np.uint8), 100),
+            ("twelve_blobs", twelve_blobs(), CONTOUR_BLOBS), ("pixels_of_128", gray, 16),
+            ("nested", nested, 16), ("diagonal", diagonal, 8), ("dots", dots, 40),
+            ("single_pixel", one, 4), ("past_65535_labels", diagonal, 65536),
+            ("byte_path_965x965", big, 8)]
+
+
+def _contour_modes(img, table, label_map, cap):
+    """The K20 calls of a frame: traces from its first foreground pixel, a
+    background pixel and starts outside the frame, find at two capacities, largest."""
+    fg = np.argwhere(img > 128)
+    first = (int(fg[0][1]), int(fg[0][0])) if len(fg) else (0, 0)
+    h, w = img.shape
+    calls = [{"start": s} for s in (first, (0, h - 1), (-1, 0), (0, -1), (w, 0), (-w - 1, 0))]
+    calls += [{"table": table, "label_map": label_map, "max_contours": m}
+              for m in sorted({min(cap, 3), min(cap, 16)})]
+    calls.append({"table": table, "label_map": label_map, "largest": True})
+    return calls
+
+
+def phase_contour_template_kernels(chk, rng, dev):
+    """K19 against ``match_template_plain`` at odd byte offsets, odd shapes and the
+    template limit; K20 against ``contour_plain`` in its three modes, on fresh and
+    carried masks."""
+    cases = [(s, t, off) for s, t in TEMPLATE_CASES for off in TEMPLATE_OFFSETS]
+    cases += [(s, t, 1) for s, t in TEMPLATE_LIMIT_CASES]
+    for shape, tshape, off in cases:
+        frames = unaligned(shape, off, rng, dev)
+        tmpl = unaligned(tshape, 0, rng, dev)
+        chk.same("match_template", K.match_template(frames, tmpl),
+                 K.match_template_plain(frames, tmpl), f"{shape} {tshape} {off} B off")
+    wide = torch.from_numpy(rng.integers(0, 256, (3, 50, 91), dtype=np.uint8)).to(dev)[:, :, 1:]
+    tmpl = wide[0, 10:22, 30:45].contiguous()
+    chk.same("match_template", gt.match_template(wide, tmpl),
+             K.match_template_plain(wide.contiguous(), tmpl), "[:, :, 1:] of a wider batch")
+    before = K.launch_counts()["match_template"]
+    try:
+        gt.match_template(torch.zeros((1, 10, 20000), dtype=torch.uint8, device=dev),
+                          torch.zeros((4, 16513), dtype=torch.uint8, device=dev))
+        raise AssertionError("a template of 66,052 pixels did not raise")
+    except ValueError:
+        pass
+    if K.launch_counts()["match_template"] != before:
+        raise AssertionError("a template of 66,052 pixels launched K19")
+    torch.cuda.synchronize()
+
+    steps = {}
+    for name, img, cap in contour_frames(rng):
+        g = torch.from_numpy(img).to(dev)
+        table, label_map, _ = gt.blobs(g, cap)
+        carried = torch.zeros_like(g)
+        carried[::7, ::5] = 8
+        carried[3::7, 2::5] = 9  # any non-zero byte counts as visited and keeps its value
+        for i, kw in enumerate(_contour_modes(img, table, label_map, cap)):
+            for mask_name, mask in (("fresh", torch.zeros_like(g)), ("carried", carried)):
+                if "largest" in kw and mask_name == "carried":
+                    continue  # largest always walks a fresh mask
+                v_card, v_plain = mask.clone(), mask.clone()
+                got = K.contour(g, v_card, **kw)
+                ref = K.contour_plain(g, v_plain, **kw)
+                mode = ("largest" if kw.get("largest") else
+                        f"find {kw['max_contours']}" if "table" in kw else f"trace {kw['start']}")
+                what = f"{name} {mode} {mask_name}"
+                for field, a, b in zip(("rows", "flag", "steps"), got, ref):
+                    chk.same("contour", a, b, f"{what} {field}")
+                chk.same("contour", v_card, v_plain, f"{what} visited")
+                steps[what] = int(ref[2].sum())
+                if name == "noise_12x12" and i == 0 and steps[what] != 4 * 12 * 12 + 8:
+                    raise AssertionError("the 12x12 noise walk did not run to the step bound")
+        torch.cuda.synchronize()
+    names = ("match_template", "contour")
+    emit("template_contour_kernels_vs_plain", ok=True,
+         template_cases=[[list(s), list(t), off] for s, t, off in cases],
+         contour_frames=[name for name, _, _ in contour_frames(rng)], walks=len(steps),
+         walk_steps=sum(steps.values()), longest_walks=sorted(steps.items(),
+                                                              key=lambda kv: -kv[1])[:4],
+         checks={k: chk.checks[k] for k in names}, max_abs_err={k: chk.max_err[k] for k in names})
+
+
+def match_batch(dev):
+    return torch.from_numpy(lena_batch(MATCH_N, MATCH_H, MATCH_W, roll=MATCH_ROLL)).to(dev)
+
+
+def match_and_best(frames, tmpl):
+    """``bench_all.py:241-244``: the score maps of a batch, then each map's best placement."""
+    return gt.find_best_match(gt.match_template(frames, tmpl))
+
+
+def phase_contour_template_path(chk, dev):
+    """The new entry points through ``_launched``, against the single-device
+    entry point, the plain path on the CPU and the goldens."""
+    frames = match_batch(dev)
+    tmpl = frames[0][MATCH_TMPL].contiguous()
+    runs = []
+    (xs, ys), counts = _launched(("match_template",), match_and_best, frames, tmpl)
+    runs.append(counts)
+    scores = gt.match_template(frames, tmpl)
+    if counts["match_template"] != 1 or int(scores[0, ys[0], xs[0]]) != 255:
+        raise AssertionError(f"match_template: {counts}, frame 0's best {int(xs[0]), int(ys[0])} "
+                             "is not a perfect match")
+    rows = [0, MATCH_N - 1]
+    host = frames[rows].cpu()
+    cpu_scores = gt.match_template(host, tmpl.cpu())
+    if not torch.equal(scores[rows].cpu(), cpu_scores):
+        raise AssertionError("match_template: card differs from the plain path on the CPU")
+    for a, b in zip((xs[rows], ys[rows]), gt.find_best_match(cpu_scores)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("find_best_match: card differs from the CPU")
+    h_loc = MATCH_H // SPACE
+    for shape in ((1, SPACE), (2, SPACE)):
+        mesh = card_mesh(shape, dev)
+        for th, tw in ((32, 32), (h_loc, 40), (h_loc + 80, 24)):  # shorter, equal, taller
+            t = frames[1, 100:100 + th, 50:50 + tw].contiguous()
+            got, counts = _launched(("match_template",), gt.parallel.match_template_sharded,
+                                    frames, t, mesh)
+            runs.append(counts)
+            if counts["match_template"] != shape[0] * shape[1]:
+                raise AssertionError(f"{shape} match_template_sharded launched {counts}")
+            chk.same("match_template", got, gt.match_template(frames, t),
+                     f"{shape} match_template_sharded {th}x{tw} vs match_template")
+
+    cim = twelve_blobs()
+    g = torch.from_numpy(cim).to(dev)
+    found, counts = _launched(("ccl", "contour"), gt.find_contours, g, CONTOUR_CAP, CONTOUR_BLOBS)
+    runs.append(counts)
+    if int(found.n) != 12:
+        raise AssertionError(f"find_contours found {int(found.n)} contours, want 12")
+    (largest, is_found), counts = _launched(("ccl", "contour"), gt.largest_blob_contour, g)
+    runs.append(counts)
+    traced, counts = _launched(("contour",), gt.trace_contour, g, (30, 20))
+    runs.append(counts)
+    carried, counts = _launched(("contour",), gt.trace_contour, g, (190, 20), traced.visited)
+    runs.append(counts)
+    for c in runs[-4:]:
+        if c["contour"] != 1:
+            raise AssertionError(f"a contour entry point launched K20 {c['contour']} times")
+    with host_arrays_to("cpu"):
+        ref = [gt.find_contours(cim, CONTOUR_CAP, CONTOUR_BLOBS), gt.largest_blob_contour(cim)]
+        t1 = gt.trace_contour(cim, (30, 20))
+        ref += [t1, gt.trace_contour(cim, (190, 20), t1.visited)]
+
+    def flat(x):
+        out = []
+        for v in x:
+            out += flat(v) if isinstance(v, tuple) else [v]
+        return out
+
+    for what, got, want in zip(("find_contours", "largest_blob_contour", "trace_contour",
+                                "trace_contour carried"),
+                               (found, (largest, is_found), traced, carried), ref):
+        for a, b in zip(flat(got), flat(want)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{what}: card differs from the plain path on the CPU")
+
+    g_npz = np.load(os.path.join(HERE, "tests", "golden", "goldens.npz"))
+    res = gt.match_template(torch.from_numpy(g_npz["input"]).to(dev),
+                            torch.from_numpy(g_npz["tmpl"]).to(dev))
+    img = torch.from_numpy(g_npz["contour_input"]).to(dev)
+    c1 = gt.trace_contour(img, (6, 5))
+    c2 = gt.trace_contour(img, (42, 20), visited=c1.visited)
+    c, f = gt.largest_blob_contour(img, max_blobs=16)
+    got = {"match_template": res.cpu().numpy(),
+           "contour1": np.array([*(int(v) for v in c1.box), int(c1.length)]),
+           "contour2": np.array([*(int(v) for v in c2.box), int(c2.length)]),
+           "contour_visited": c2.visited.cpu().numpy(),
+           "largest_contour": np.array([int(f), *(int(v) for v in c.box), int(c.length),
+                                        int(c.start.x), int(c.start.y)])}
+    for key, value in got.items():
+        if not np.array_equal(value.astype(np.int64), g_npz[key].astype(np.int64)):
+            raise AssertionError(f"golden {key} differs on the card")
+    launches = {name: sum(c[name] for c in runs) for name in KERNELS}
+    emit("template_contour_path", ok=True, frames=MATCH_N, height=MATCH_H, width=MATCH_W,
+         template=[32, 32], best_frame0=[int(xs[0]), int(ys[0])], launches=launches,
+         launches_per_run=[{k: v for k, v in c.items() if v} for c in runs],
+         meshes=[[1, SPACE], [2, SPACE]],
+         sharded_templates=[[32, 32], [h_loc, 40], [h_loc + 80, 24]],
+         contours=int(found.n), largest_found=bool(is_found),
+         largest_box=[int(v) for v in largest.box], cpu_frames_checked=rows,
+         goldens=list(got))
+    return launches
+
+
+def phase_contour_template_timing(card, dev):
+    frames = match_batch(dev)
+    tmpl = frames[0][MATCH_TMPL].contiguous()
+    n, h, w = frames.shape
+    th, tw = tmpl.shape
+    t_match = timeit(match_and_best, frames, tmpl)
+    cim = torch.from_numpy(twelve_blobs()).to(dev)
+    if int(gt.find_contours(cim, CONTOUR_CAP, CONTOUR_BLOBS).n) != 12:
+        raise AssertionError("find_contours on the 12-blob frame did not find 12")
+    t_find = timeit(gt.find_contours, cim, CONTOUR_CAP, CONTOUR_BLOBS)
+    t_largest = timeit(gt.largest_blob_contour, cim)
+    emit("template_contour_timing", card=card,
+         match_template_640x480_fps=n / t_match, match_ms_per_batch=t_match * 1e3,
+         find_contours_12blob_640x480_ms=t_find * 1e3,
+         largest_blob_contour_640x480_ms=t_largest * 1e3, frames=n, template=[th, tw],
+         windows="median of 3 windows of 20 calls after 2 warm-up calls")
+
+    # K19: the SSD is sum I^2 - 2 sum I*T + sum T^2, exact in integers, so the card's
+    # least time is the correlation's byte products at the int8 tensor rate (a
+    # multiply-add as two operations); the windowed sums of I^2 are not counted.
+    # The committed design's own ceiling is 2 INT32 instructions (__vabsdiffu4,
+    # __dp4a) each 4 squared differences.
+    diffs = n * (h - th + 1) * (w - tw + 1) * th * tw
+    F = torch.nn.functional
+    frames_f = frames.to(torch.float32)[:, None]
+    weight = tmpl.to(torch.float32)[None, None]
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True  # cuDNN's default choice took about 1 s a call
+    try:
+        conv_ms = timeit(F.conv2d, frames_f, weight, iters=3, warmup=1, repeat=1) * 1e3
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    del frames_f
+    times = {"match_template": kernel_entry(
+        timeit(K.match_template, frames, tmpl) * 1e3,
+        timeit(K.match_template_plain, frames, tmpl, iters=1, repeat=1, warmup=1) * 1e3,
+        frames.numel() + th * tw + n * (h - th + 1) * (w - tw + 1), {"int8_tensor": 2 * diffs},
+        conv_ms, "conv2d of the float32 frames with the template, cudnn.benchmark on (the "
+                 "correlation alone, not the SSD; cudnn.allow_tf32="
+                 f"{torch.backends.cudnn.allow_tf32}): a yardstick")}
+    times["match_template"].update(
+        device_ms=device_ms(lambda: K.match_template(frames, tmpl)),
+        design_ceiling_ms=ops_ms({"int32": diffs / 2}),
+        design_ceiling="the committed design's INT32 issue time: __vabsdiffu4 + __dp4a each "
+                       "4 squared differences")
+
+    # K20 at find_contours' call: its walks' steps, each at least one dependent load
+    table, label_map, _ = gt.blobs(cim, CONTOUR_BLOBS)
+    vis = torch.zeros_like(cim)
+
+    def walks():
+        vis.zero_()
+        return K.contour(cim, vis, table=table, label_map=label_map, max_contours=CONTOUR_CAP)
+
+    _, _, steps = walks()
+    n_steps = int(steps.sum())
+    walk_ms = timeit(walks) * 1e3 - timeit(vis.zero_) * 1e3  # events, the memset apart
+    walk_device_ms = device_ms(walks, kernel="contour_b")  # K20 alone, either template
+    # the same walks on a frame past the shared-memory bitmaps: the byte path
+    wide = torch.zeros((1000, 1000), dtype=torch.uint8, device=dev)
+    wide[:480, :640] = cim
+    wide_table, wide_map, _ = gt.blobs(wide, CONTOUR_BLOBS)
+    wide_vis = torch.zeros_like(wide)
+
+    def wide_walks():
+        wide_vis.zero_()
+        return K.contour(wide, wide_vis, table=wide_table, label_map=wide_map,
+                         max_contours=CONTOUR_CAP)
+
+    wide_steps = int(wide_walks()[2].sum())
+    wide_ms = timeit(wide_walks) * 1e3 - timeit(wide_vis.zero_) * 1e3
+    hz = OP_RATES["fadd_chain"] * FADD_LATENCY_CYCLES
+    mask = torch.zeros_like(cim)
+
+    def plain_walks():
+        mask.zero_()
+        return K.contour_plain(cim, mask, table=table, label_map=label_map,
+                               max_contours=CONTOUR_CAP)
+
+    # bytes: each step's 8 neighbours and mask byte
+    times["contour"] = kernel_entry(
+        walk_ms, timeit(plain_walks, iters=1, repeat=1, warmup=1) * 1e3, 9 * n_steps,
+        {"shared_load_chain": n_steps}, None, "none: no contour walk in PyTorch")
+    times["contour"].update(device_ms=walk_device_ms, steps=n_steps,
+                            ms_per_step=walk_ms / n_steps, byte_path_ms=wide_ms,
+                            byte_path_steps=wide_steps,
+                            step_bound="one dependent shared-memory load a step, "
+                                       f"{SHARED_LOAD_LATENCY_CYCLES} cycles (chip_sweep.py "
+                                       "--source contour) at the top SM clock")
+    emit("template_contour_device_time", card=card,
+         k19_device_ms=times["match_template"]["device_ms"], k20_event_ms=walk_ms,
+         k20_device_ms=walk_device_ms, k20_steps=n_steps,
+         k20_ns_per_step=walk_ms / n_steps * 1e6, k20_cycles_per_step=walk_ms / n_steps * 1e-3 * hz,
+         k20_byte_path_ms=wide_ms, k20_byte_path_steps=wide_steps,
+         k20_byte_path_ns_per_step=wide_ms / wide_steps * 1e6,
+         source="K20: CUDA events (timeit) of the memset and the kernel less those of the "
+                "memset; device: torch.profiler device events of K20's kernel over 20 calls "
+                "after a warm-up call; byte path: the 12-blob frame in the corner of a "
+                "1000x1000 frame")
+    for name, entry in times.items():
+        emit("kernel_time", card=card, kernel=name,
+             shape=list(frames.shape) if name == "match_template" else list(cim.shape), **entry)
+    for label, fn, args in (("match_template + find_best_match, 64 x 640x480", match_and_best,
+                             (frames, tmpl)),
+                            ("find_contours, 12 blobs", gt.find_contours,
+                             (cim, CONTOUR_CAP, CONTOUR_BLOBS)),
+                            ("largest_blob_contour, 12 blobs", gt.largest_blob_contour, (cim,))):
+        emit("template_contour_profile", card=card, entry=label, **profile_calls(fn, *args))
+    return times
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2108,6 +2473,7 @@ def main():
     phase_scan_kernels(chk, np.random.default_rng(3), dev)
     phase_dense_kernels(chk, np.random.default_rng(4), dev)
     phase_sharded_kernels(chk, np.random.default_rng(5), dev)
+    phase_contour_template_kernels(chk, np.random.default_rng(6), dev)
     batch, pre_launches = phase_main_path(chk, dev)
     faces_batch, faces_launches = phase_faces_path(chk, dev)
     orb_frames, orb_launches = phase_orb_path(chk, dev)
@@ -2115,6 +2481,7 @@ def main():
     dense_batch, dense_binary, dense_launches = phase_dense_path(chk, dev)
     cli_launches = phase_cli(dev)
     sharded_launches = phase_sharded_path(chk, dev, batch)
+    tc_launches = phase_contour_template_path(chk, dev)
     bw_launches, times, rates = phase_bandwidth(card, dev)
     times.update(phase_timing(batch, card))
     times.update(phase_sharded_timing(batch, card))
@@ -2125,11 +2492,13 @@ def main():
     times.update(phase_scan_timing(scan_batch, scan_corners, card, parent))
     del scan_batch, faces_batch, orb_frames
     times.update(phase_dense_timing(dense_batch, dense_binary, card))
+    del dense_batch, dense_binary
+    times.update(phase_contour_template_timing(card, dev))
 
     # each path ran with the counts at 0 and launches only its own kernels
     launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]
                 + scan_launches[name] + dense_launches[name] + cli_launches[name]
-                + sharded_launches[name] + bw_launches[name]
+                + sharded_launches[name] + tc_launches[name] + bw_launches[name]
                 for name in KERNELS}
     emit("elapsed", seconds=time.perf_counter() - t_start)
     copy_rate = rates["copy_gbps"] * 1e9

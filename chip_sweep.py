@@ -4,7 +4,7 @@
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
     python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu,patches,ccl,
-                                     integral,warp}]
+                                     integral,warp,template,contour}]
                           [--parent DIR ...] [--only NAME ...]
 
 It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
@@ -141,6 +141,19 @@ to 1000x800 pages with the corners ``scan`` finds), one of its frames, the
 steep and extreme quads of ``chip_smoke.WARP_QUADS`` on the 8 frames, the
 (347, 200) page, and 2 frames to a 4000x3000 page.  Device time too.
 
+``--source template``: K19's placement rows a thread (``kRows``: 1, as the
+first design, 2, 8) and warps a block (``kWarps``: 4, 16), on 64 frames of
+lena tiled to 480x640 with templates of 32x32 (``bench_all.py``'s), 8x8,
+64x48 and 16x100.
+
+``--source contour``: K20 with every frame walked on its bytes
+(``kMaxBitmapBytes`` 0) against the shared-memory bitmaps, at
+``find_contours``' and ``largest_blob_contour``'s calls on the 12-blob frame
+and a spiral trace that runs to the step bound, each on a fresh mask; and a
+probe of the card's dependent-load latency from shared memory and through L1
+(one thread chasing a chain of indices), the latency behind K20's bound
+(``chip_smoke.SHARED_LOAD_LATENCY_CYCLES``).
+
 Each phase prints one JSON line; the last line is ``{"ok": true, ...}``.
 """
 
@@ -156,12 +169,13 @@ import time
 
 import torch
 
-from chip_smoke import (DENSE_C, DENSE_N, DENSE_R, FACES_H, FACES_N, FACES_W, FILTER_TAPS,
-                        MAIN_H, MAIN_N, MAIN_R, MAIN_W,
+from chip_smoke import (CONTOUR_BLOBS, CONTOUR_CAP, DENSE_C, DENSE_N, DENSE_R, FACES_H, FACES_N,
+                        FACES_W, FILTER_TAPS, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
                         ORB_CAP, ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_CAP, SCAN_N, SCAN_PAGE,
                         WARP_QUADS,
                         WithEntries, _aruco, alternate_windows, brief_args, card_line, device_ms,
-                        document_batch, lena_batch, receipt_batch, track_levels)
+                        document_batch, lena_batch, match_batch, receipt_batch, spiral,
+                        track_levels, twelve_blobs)
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
@@ -939,6 +953,66 @@ def fadd_latency(dev):
         least[adds] = min(least.get(adds, 1 << 62), int(cycles.item()))
     return {"cycles_512": least[512], "cycles_1536": least[1536],
             "cycles_per_add": (least[1536] - least[512]) / 1024}
+
+
+# One thread follows a chain of 4-byte indices, each load's address the
+# previous load's value, between two clock64 reads; two lengths, so that the
+# difference cancels the reads' own cost.
+LOAD_PROBE = r"""#include <cuda_runtime.h>
+
+// shared: the table in shared memory; else through L1
+__global__ void chase(const unsigned* next, unsigned* out, long long* cycles, int hops,
+                      int shared) {
+  __shared__ unsigned table[1024];
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) table[i] = next[i];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned p = 0;
+  for (int i = 0; i < 1024; ++i) p = __ldg(next + p);  // L1 warm
+  const long long t0 = clock64();
+  if (shared) {
+    for (int i = 0; i < hops; ++i) p = table[p];
+  } else {
+    for (int i = 0; i < hops; ++i) p = __ldg(next + p);
+  }
+  const long long t1 = clock64();
+  out[0] = p;
+  cycles[0] = t1 - t0;
+}
+
+extern "C" int gs_chase(const void* next, void* out, void* cycles, int hops, int shared) {
+  chase<<<1, 32>>>(static_cast<const unsigned*>(next), static_cast<unsigned*>(out),
+                   static_cast<long long*>(cycles), hops, shared);
+  return cudaGetLastError();
+}
+"""
+
+
+def load_latency(dev):
+    """Cycles of one dependent load on the card, from shared memory and through
+    L1: (cycles of 3,072 hops - cycles of 1,024) / 2,048 along a chain of 1,024
+    indices 33 apart, the least of 5 runs of each."""
+    d = _build.BUILD_DIR / "sweep" / "contour" / "load_probe"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "load_probe.cu").write_text(LOAD_PROBE)
+    subprocess.run(_build.compile_command(d / "load_probe.cu", d / "load_probe.o"), check=True)
+    subprocess.run(_build.link_command([d / "load_probe.o"], d / "libload_probe.so"), check=True)
+    lib = ctypes.CDLL(str(d / "libload_probe.so"))
+    lib.gs_chase.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_int)
+    nxt = ((torch.arange(1024, dtype=torch.int64) + 33) % 1024).to(torch.int32).to(dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    result = {}
+    for shared, name in ((1, "shared"), (0, "l1")):
+        least = {}
+        for hops in (1024, 3072) * 5:
+            if lib.gs_chase(nxt.data_ptr(), out.data_ptr(), cycles.data_ptr(), hops, shared) != 0:
+                raise RuntimeError("the load probe did not launch")
+            torch.cuda.synchronize()
+            least[hops] = min(least.get(hops, 1 << 62), int(cycles.item()))
+        result[f"{name}_cycles_per_load"] = (least[3072] - least[1024]) / 2048
+    return result
 
 
 def preproc_cases(dev):
@@ -1794,6 +1868,55 @@ def warp_cases(dev):
     return cases, {}
 
 
+TEMPLATE_VARIANTS = {
+    "committed": lambda s: s,
+    # rows 1: a thread's 4 placements of one row, each frame word serving one template row
+    **{f"rows{r}": const("kRows", r) for r in (1, 2, 8)},
+    **{f"warps{w}": const("kWarps", w) for w in (4, 16)},
+}
+
+
+def template_cases(dev):
+    """K19 at ``bench_all.py``'s call (64 frames of lena tiled to 480x640, a
+    32x32 template), and with 8x8, 64x48 and 16x100 templates."""
+    frames = match_batch(dev)
+    cases = {}
+    for th, tw in ((32, 32), (8, 8), (64, 48), (16, 100)):
+        tmpl = frames[0, 200:200 + th, 300:300 + tw].contiguous()
+        cases[f"match_template_{th}x{tw}"] = (frames.shape,
+                                              lambda t=tmpl: K.match_template(frames, t),
+                                              lambda t=tmpl: K.match_template_plain(frames, t))
+    return cases, {}
+
+
+CONTOUR_VARIANTS = {
+    "committed": lambda s: s,
+    # every frame walked on its bytes, as frames past 0.93 MP are
+    "bytes_always": const("kMaxBitmapBytes", 0),
+}
+
+
+def contour_cases(dev):
+    """K20 at ``find_contours``' and ``largest_blob_contour``'s calls on the
+    12-blob frame of ``bench_all.py``, and a trace of the 40x128 spiral that
+    runs to the step bound; each call on a fresh mask (the memset is timed too)."""
+    cim = torch.from_numpy(twelve_blobs()).to(dev)
+    table, label_map, _ = gt.blobs(cim, CONTOUR_BLOBS)
+    sp = torch.from_numpy(spiral(40, 128)).to(dev)
+    calls = {"find_12_blobs": (cim, {"table": table, "label_map": label_map,
+                                     "max_contours": CONTOUR_CAP}),
+             "largest_12_blobs": (cim, {"table": table, "label_map": label_map, "largest": True}),
+             "trace_spiral_40x128_step_bound": (sp, {"start": (0, 39)})}
+
+    def call(kernel, img, kw):
+        return kernel(img, torch.zeros_like(img), **kw)
+
+    cases = {f"contour_{label}": (img.shape, lambda a=(img, kw): call(K.contour, *a),
+                                  lambda a=(img, kw): call(K.contour_plain, *a))
+             for label, (img, kw) in calls.items()}
+    return cases, {}
+
+
 # sources whose kernels are short enough that back-to-back calls may time the
 # host: their variants are also timed by the profiler's device events
 DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl", "integral", "warp")
@@ -1816,6 +1939,10 @@ SOURCES = {
     "ccl": ("ccl.cu", ("gs_ccl",), CCL_VARIANTS, CCL_ABLATIONS, ccl_cases, r"tile|border|flatten|merge|init|Used"),
     "warp": ("warp.cu", ("gs_quad_warp",), WARP_VARIANTS, WARP_ABLATIONS, warp_cases,
              r"quad_warp|Used"),
+    "template": ("template.cu", ("gs_match_template",), TEMPLATE_VARIANTS, {}, template_cases,
+                 r"match_template|Used"),
+    "contour": ("contour.cu", ("gs_contour",), CONTOUR_VARIANTS, {}, contour_cases,
+                r"contour|Used"),
 }
 # (kernel, library call) pairs that every variant is also timed against in
 # chip_smoke.alternate_windows, variants in order and then in reverse
@@ -2012,8 +2139,10 @@ def main():
                 on_device[f"{kernel}:{label}"] = names
         emit("library_kernels", card=card, device_ms_a_call_by_name=on_device,
              source="torch.profiler device events over 10 calls after a warm-up call")
-    if args.source == "otsu":
-        emit("fadd_latency", card=card, **fadd_latency(dev),
+    probes = {"otsu": ("fadd_latency", fadd_latency), "contour": ("load_latency", load_latency)}
+    if args.source in probes:
+        phase, probe = probes[args.source]
+        emit(phase, card=card, **probe(dev),
              clock_mhz=subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                        "--format=csv,noheader,nounits"], capture_output=True,
                                       text=True, check=True).stdout.strip())

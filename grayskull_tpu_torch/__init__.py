@@ -5,10 +5,11 @@ The same uint8 NHW convention, module layout and function names as
 hand-written Hopper kernels (``csrc/*.cu``, built with ``nvcc`` on first use), a
 CPU tensor their plain PyTorch versions; a numpy array goes to the CUDA device
 (:func:`core.host_arrays_to` asks for the CPU instead).  Outputs are bit-exact
-with the JAX package.  Six slices are ported: the preprocess main path, face
+with the JAX package.  Seven slices are ported: the preprocess main path, face
 detection, ORB, the document scanner, the rest of the dense pixel ops with the
-nanomagick CLI (``python -m grayskull_tpu_torch.cli``) on top, and the sharded
-paths of :mod:`.parallel` with the bandwidth probe of :mod:`.profiling`::
+nanomagick CLI (``python -m grayskull_tpu_torch.cli``) on top, the sharded
+paths of :mod:`.parallel` with the bandwidth probe of :mod:`.profiling`, and
+template matching and contour tracing::
 
     import grayskull_tpu_torch as gs
     frames = gs.as_image(gs.io.read_pgm_batch(paths))   # on the card
@@ -29,6 +30,13 @@ paths of :mod:`.parallel` with the bandwidth probe of :mod:`.profiling`::
     mesh = gs.parallel.make_mesh((1, 4), devices=["cuda:0"] * 4)
     blurred, binary, edges, thresholds = gs.parallel.preprocess_spatial_shardmap(frames, mesh)
     rates = gs.profiling.hbm_bandwidth_gbps()   # {"copy_gbps": ..., "triad_gbps": ...}
+    # SSD template match of every frame (one launch), the best placement of each
+    scores = gs.match_template(frames, frames[0, 200:232, 300:332])
+    xs, ys = gs.find_best_match(scores)
+    # the same with each frame's rows split over 4 shards
+    scores = gs.parallel.match_template_sharded(frames, frames[0, 200:232, 300:332], mesh)
+    # every blob's outer contour of one binary frame, in one launch
+    table = gs.find_contours(gs.threshold(frames[0], 128), 16, 64)
 
 The package imports no JAX and builds nothing at import.
 """
@@ -36,16 +44,17 @@ The package imports no JAX and builds nothing at import.
 from . import (cascade, core, io, kernels, libm32, ops, parallel, pipelines,  # noqa: F401
                profiling, structlog)
 from .cascade import load_frontalface, load_opencv_xml  # noqa: F401
-from .core import (Blobs, Keypoints, LbpCascade, Matches, Point, Rect, Rects,  # noqa: F401
-                   as_image, is_batched)
+from .core import (Blobs, Contour, Keypoints, LbpCascade, Matches, Point, Rect,  # noqa: F401
+                   Rects, as_image, is_batched)
 from .ops import (BLUR_BOX_KERNEL, BLUR_GAUSSIAN_KERNEL, EMBOSS_KERNEL,  # noqa: F401
-                  SHARPEN_KERNEL, adaptive_threshold, blob_corners, blobs, blur, blur_box,
-                  blur_gaussian, brief_descriptor, compute_orientation, copy, crop, dilate,
-                  downsample, emboss, erode, fast, fast_scoremap, filter2d, hamming_distance,
-                  histogram, integral, integral_sum, label_components, lbp_detect,
-                  lbp_warm_start, lbp_window, match_orb, orb_extract, otsu_from_histogram,
-                  otsu_threshold, perspective_correct, resize, resize_nn, scale_ladder, sharpen,
-                  sobel, threshold)
+                  SHARPEN_KERNEL, Contours, adaptive_threshold, blob_corners, blobs, blur,
+                  blur_box, blur_gaussian, brief_descriptor, compute_orientation, copy, crop,
+                  dilate, downsample, emboss, erode, fast, fast_scoremap, filter2d,
+                  find_best_match, find_contours, hamming_distance, histogram, integral,
+                  integral_sum, label_components, largest_blob_contour, lbp_detect,
+                  lbp_warm_start, lbp_window, match_orb, match_template, orb_extract,
+                  otsu_from_histogram, otsu_threshold, perspective_correct, resize, resize_nn,
+                  scale_ladder, sharpen, sobel, threshold, trace_contour)
 from .pipelines import (detect_faces, extract_pyramid_orb, preprocess,  # noqa: F401
                         preprocess_binarize, preprocess_reference, scan, track)
 
@@ -53,6 +62,8 @@ __all__ = [
     "BLUR_BOX_KERNEL",
     "BLUR_GAUSSIAN_KERNEL",
     "Blobs",
+    "Contour",
+    "Contours",
     "EMBOSS_KERNEL",
     "Keypoints",
     "LbpCascade",
@@ -81,18 +92,22 @@ __all__ = [
     "fast",
     "fast_scoremap",
     "filter2d",
+    "find_best_match",
+    "find_contours",
     "hamming_distance",
     "histogram",
     "integral",
     "integral_sum",
     "is_batched",
     "label_components",
+    "largest_blob_contour",
     "lbp_detect",
     "lbp_warm_start",
     "lbp_window",
     "load_frontalface",
     "load_opencv_xml",
     "match_orb",
+    "match_template",
     "orb_extract",
     "otsu_from_histogram",
     "otsu_threshold",
@@ -107,6 +122,7 @@ __all__ = [
     "sharpen",
     "sobel",
     "threshold",
+    "trace_contour",
     "track",
 ]
 

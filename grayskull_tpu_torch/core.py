@@ -12,8 +12,9 @@ Coordinates follow the reference: ``x`` is the column (fast axis), ``y`` the row
 Sparse results are fixed-capacity tables with an explicit valid count, as in
 the JAX package: :class:`Rects` holds LBP detections, :class:`Keypoints` ORB
 keypoints, :class:`Matches` descriptor matches and :class:`Blobs` connected
-components.  :class:`LbpCascade` is the cascade's host-side numpy data, shared
-with the JAX package through :func:`lbp_cascade_from_arrays`;
+components; :class:`Contour` is one traced contour with its visited mask.
+:class:`LbpCascade` is the cascade's host-side numpy data, shared with the
+JAX package through :func:`lbp_cascade_from_arrays`;
 :func:`keypoints_from_arrays` and :func:`blobs_from_arrays` take a keypoint or
 blob table across the same way.
 """
@@ -28,8 +29,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Blobs", "Keypoints", "LbpCascade", "Matches", "Point", "Rect", "Rects", "as_image",
-           "as_tensor", "blobs_from_arrays", "host_arrays_to", "host_device", "is_batched",
+__all__ = ["Blobs", "Contour", "Keypoints", "LbpCascade", "Matches", "Point", "Rect", "Rects",
+           "as_image", "as_tensor", "blobs_from_arrays", "host_arrays_to", "host_device", "is_batched",
            "keypoints_from_arrays", "lbp_cascade_from_arrays"]
 
 
@@ -105,6 +106,20 @@ class Blobs(NamedTuple):
     area: torch.Tensor
     box: Rect
     centroid: Point
+
+
+class Contour(NamedTuple):
+    """``gs_contour`` (grayskull.h:36-40) plus the visited mask.
+
+    ``box`` (:class:`Rect`), ``start`` (:class:`Point`) and ``length`` are 0-d
+    ``torch.int32`` tensors; ``visited`` is the ``(H, W)`` ``torch.uint8``
+    mask, 255 on the pixels the walk visited.
+    """
+
+    box: Rect
+    start: Point
+    length: torch.Tensor
+    visited: torch.Tensor
 
 
 def blobs_from_arrays(obj) -> Blobs:

@@ -18,6 +18,10 @@
 * :mod:`.resize` — K14 ``resize`` (the bilinear resize, a thread per output pixel)
 * :mod:`.bandwidth` — K17 ``copy`` and K18 ``triad`` (the device-memory
   bandwidth probe, 16 bytes a thread)
+* :mod:`.template` — K19 ``match_template`` (the exact SSD of every placement,
+  four bytes an instruction)
+* :mod:`.contour` — K20 ``contour`` (the Moore walks of a call, a warp, one
+  ballot a step)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -27,6 +31,7 @@ launched; :func:`reset_launch_counts` sets every count to 0.
 
 from . import bandwidth as _bandwidth_mod
 from . import ccl as _ccl_mod
+from . import contour as _contour_mod
 from . import fast as _fast_mod
 from . import integral as _integral_mod
 from . import lbp as _lbp_mod
@@ -34,9 +39,11 @@ from . import otsu as _otsu_mod
 from . import patches as _patches_mod
 from . import preproc as _preproc_mod
 from . import resize as _resize_mod
+from . import template as _template_mod
 from . import warp as _warp_mod
 from .bandwidth import copy, copy_plain, triad, triad_plain  # noqa: F401
 from .ccl import ccl, ccl_plain  # noqa: F401
+from .contour import contour, contour_plain  # noqa: F401
 from .fast import fast, fast_plain  # noqa: F401
 from .integral import integral, integral_plain  # noqa: F401
 from .lbp import lbp_eval_scale, lbp_eval_scale_plain  # noqa: F401
@@ -49,6 +56,7 @@ from .preproc import (adaptive, adaptive_plain, blur_hist, blur_hist_plain,  # n
                       threshold_sobel, threshold_sobel_plain, threshold_sobel_window,
                       threshold_sobel_window_plain)
 from .resize import resize, resize_plain  # noqa: F401
+from .template import match_template, match_template_plain  # noqa: F401
 from .warp import quad_warp, quad_warp_plain  # noqa: F401
 
 __all__ = [
@@ -60,6 +68,8 @@ __all__ = [
     "blur_hist_window_plain",
     "ccl",
     "ccl_plain",
+    "contour",
+    "contour_plain",
     "copy",
     "copy_plain",
     "extract_patches_plain",
@@ -74,6 +84,8 @@ __all__ = [
     "launch_counts",
     "lbp_eval_scale",
     "lbp_eval_scale_plain",
+    "match_template",
+    "match_template_plain",
     "morph",
     "morph_plain",
     "orb_brief",
@@ -98,7 +110,8 @@ __all__ = [
 
 _COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
              _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches, _ccl_mod.launches,
-             _warp_mod.launches, _resize_mod.launches, _bandwidth_mod.launches)
+             _warp_mod.launches, _resize_mod.launches, _bandwidth_mod.launches,
+             _template_mod.launches, _contour_mod.launches)
 
 
 def launch_counts() -> dict:

@@ -1,6 +1,7 @@
 """Op layer: the ported ``gs_*`` ops on uint8 tensors."""
 
 from .blobs import blob_corners, blobs, label_components  # noqa: F401
+from .contour import Contours, find_contours, largest_blob_contour, trace_contour  # noqa: F401
 from .features import (BRIEF_PATTERN, brief_descriptor, compute_orientation, fast,  # noqa: F401
                        fast_scoremap, hamming_distance, match_orb, orb_extract)
 from .histogram import histogram, otsu_from_histogram, otsu_threshold  # noqa: F401
@@ -10,12 +11,14 @@ from .pixel import (BLUR_BOX_KERNEL, BLUR_GAUSSIAN_KERNEL, EMBOSS_KERNEL,  # noq
                     SHARPEN_KERNEL, adaptive_threshold, blur, blur_box, blur_gaussian, copy, crop,
                     dilate, downsample, emboss, erode, filter2d, resize, resize_nn, sharpen, sobel,
                     threshold)
+from .template import find_best_match, match_template  # noqa: F401
 from .warp import perspective_correct  # noqa: F401
 
 __all__ = [
     "BLUR_BOX_KERNEL",
     "BLUR_GAUSSIAN_KERNEL",
     "BRIEF_PATTERN",
+    "Contours",
     "EMBOSS_KERNEL",
     "SHARPEN_KERNEL",
     "adaptive_threshold",
@@ -35,15 +38,19 @@ __all__ = [
     "fast",
     "fast_scoremap",
     "filter2d",
+    "find_best_match",
+    "find_contours",
     "hamming_distance",
     "histogram",
     "integral",
     "integral_sum",
     "label_components",
+    "largest_blob_contour",
     "lbp_detect",
     "lbp_warm_start",
     "lbp_window",
     "match_orb",
+    "match_template",
     "orb_extract",
     "otsu_from_histogram",
     "otsu_threshold",
@@ -54,4 +61,5 @@ __all__ = [
     "sharpen",
     "sobel",
     "threshold",
+    "trace_contour",
 ]

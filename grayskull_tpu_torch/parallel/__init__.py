@@ -9,15 +9,15 @@ four times runs the real exchange on one card).  Two axes, as in the JAX package
 * **space** — the H axis of frames sharded across devices, with halo rows
   exchanged for each stencil's radius and the histograms summed for Otsu.
 
-Not ported yet: ``match_template_sharded`` (it waits for ``ops/template.py``)
-and ``grayskull_tpu/parallel/sparse.py`` (sharded CCL, blobs, ORB, LBP, faces
-and the spatial scanner).
+Not ported yet: ``grayskull_tpu/parallel/sparse.py`` (sharded CCL, blobs, ORB,
+LBP, faces and the spatial scanner).
 """
 
 from .halo import bottom_halo, exchange_halo  # noqa: F401
 from .mesh import Mesh, make_mesh  # noqa: F401
 from .sharded import (  # noqa: F401
     integral_sharded,
+    match_template_sharded,
     preprocess_sharded,
     preprocess_spatial_shardmap,
     scan_sharded,
@@ -29,6 +29,7 @@ __all__ = [
     "exchange_halo",
     "integral_sharded",
     "make_mesh",
+    "match_template_sharded",
     "preprocess_sharded",
     "preprocess_spatial_shardmap",
     "scan_sharded",

@@ -16,6 +16,9 @@ gathers the outputs.  Nothing in a call waits on the host.
   data shard runs the single-device pipeline on its device.
 * :func:`integral_sharded` — K4 per shard, plus the column totals of the
   shards above it (the exclusive carry), mod 2^32.
+* :func:`match_template_sharded` — each shard extended by ``th - 1`` rows
+  from the shards below it (:func:`~.halo.bottom_halo`, several hops for a
+  template taller than a shard), K19 per extended shard.
 
 Every function returns whole-batch tensors on the mesh's first device (what a
 caller of the JAX version gets from ``np.asarray``).  Along the axes a
@@ -32,13 +35,15 @@ from ..kernels.integral import from_int64, integral, integral_plain, u32_to_int6
 from ..kernels.otsu import otsu, otsu_plain
 from ..kernels.preproc import (blur_hist_window, blur_hist_window_plain, threshold_sobel_window,
                                threshold_sobel_window_plain)
+from ..kernels.template import MAX_TEMPLATE_PIXELS
+from ..ops.template import match_template
 from ..pipelines.preproc import preprocess
 from ..pipelines.scan import scan
-from .halo import exchange_halo
+from .halo import bottom_halo, exchange_halo
 from .mesh import Mesh
 
-__all__ = ["integral_sharded", "preprocess_sharded", "preprocess_spatial_shardmap",
-           "scan_sharded"]
+__all__ = ["integral_sharded", "match_template_sharded", "preprocess_sharded",
+           "preprocess_spatial_shardmap", "scan_sharded"]
 
 
 def _grid(mesh: Mesh, *axes: str) -> np.ndarray:
@@ -196,6 +201,48 @@ def integral_sharded(imgs, mesh: Mesh, data_axis: str = "data", space_axis: str 
             carry = u32_to_int64(ii[:, -1])
             pieces.append(((rows, cols), ii.view(torch.int32)))
     return _gather(pieces, (n, h, w), torch.int32, mesh.devices.flat[0]).view(torch.uint32)
+
+
+def match_template_sharded(imgs, tmpl, mesh: Mesh, data_axis: str = "data",
+                           space_axis: str = "space"):
+    """SSD template matching on H-sharded frames, bit-identical to
+    :func:`~grayskull_tpu_torch.match_template` on every placement.
+
+    ``imgs``: (N, H, W) uint8, N divisible by the data axis, H by the space
+    axis; ``tmpl``: (th, tw) uint8, sent to every shard's device.  Each shard
+    takes the placements whose top row it holds: it is extended by ``th - 1``
+    rows from the shards below (zeros past the frame's bottom), one K19 launch
+    a shard.  Returns the (N, H - th + 1, W - tw + 1) score map on the mesh's
+    first device; the rows of placements past the frame's last are dropped.
+    """
+    frames = _frames(imgs)
+    tmpl = as_image(tmpl)
+    if tmpl.ndim != 2:
+        raise ValueError(f"expected an (th, tw) template, got shape {tuple(tmpl.shape)}")
+    n, h, w = frames.shape
+    th, tw = tmpl.shape
+    if th > h or tw > w:
+        raise ValueError(f"template {tuple(tmpl.shape)} larger than image {(h, w)}")
+    if th * tw > MAX_TEMPLATE_PIXELS:
+        raise ValueError(f"template has {th * tw} pixels; exact uint32 scoring supports up to "
+                         f"{MAX_TEMPLATE_PIXELS}")
+    grid = _grid(mesh, data_axis, space_axis)
+    nd, ns = grid.shape
+    n_loc = _split(n, nd, f"batch of {n} frames over '{data_axis}':")
+    h_loc = _split(h, ns, f"frame height over '{space_axis}':")
+    rh, rw = h - th + 1, w - tw + 1
+    pieces = []
+    for d in range(nd):
+        batch = frames[d * n_loc:(d + 1) * n_loc]
+        shards = [batch[:, s * h_loc:(s + 1) * h_loc].to(grid[d, s], non_blocking=True)
+                  for s in range(ns)]
+        for s, x in enumerate(bottom_halo(shards, th - 1)):
+            scores = match_template(x.contiguous(), tmpl.to(x.device, non_blocking=True))
+            keep = min(h_loc, rh - s * h_loc)
+            if keep > 0:
+                pieces.append(((slice(d * n_loc, (d + 1) * n_loc),
+                                slice(s * h_loc, s * h_loc + keep)), scores[:, :keep]))
+    return _gather(pieces, (n, rh, rw), torch.uint8, mesh.devices.flat[0])
 
 
 def scan_sharded(imgs, mesh: Mesh, out_size=(1000, 800), max_blobs: int = 1000,

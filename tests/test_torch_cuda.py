@@ -27,7 +27,7 @@ from grayskull_tpu_torch.ops.lbp import _grid_plan
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
 NO_DENSE = {"adaptive": 0, "morph": 0, "filter3": 0, "resize": 0}  # K11-K14 not launched
 NO_SHARDED = {"blur_hist_window": 0, "threshold_sobel_window": 0, "copy": 0,  # K15-K18 neither
-              "triad": 0}
+              "triad": 0, "match_template": 0, "contour": 0}  # nor K19, K20
 COPY_SIZES = [1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 12295, 16383, 16384,
               16385, 2**20 + 3, 2**26]
 COPY_OFFSETS = (0, 1, 4, 8)  # bytes the operands start past a 16-byte boundary
@@ -918,3 +918,144 @@ def test_sharded_preprocess_launches_on_card(cuda_device):
         assert a.is_cuda and torch.equal(a, b) and torch.equal(a.cpu(), c)
     ii = gt.parallel.integral_sharded(imgs, mesh)
     assert torch.equal(ii.view(torch.int32), gt.integral(imgs).view(torch.int32))
+
+
+def _offset_frames(shape, offset, seed, device):
+    """Random frames that start ``offset`` bytes into a larger buffer on ``device``."""
+    size = int(np.prod(shape))
+    flat = np.random.default_rng(seed).integers(0, 256, size + 16, dtype=np.uint8)
+    return torch.from_numpy(flat).to(device)[offset:offset + size].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tshape", [((2, 30, 41), (5, 7)), ((3, 17, 131), (4, 8)),
+                                          ((1, 30, 41), (30, 41)), ((2, 9, 258), (1, 1)),
+                                          ((2, 40, 300), (13, 17)), ((1, 260, 300), (257, 257)),
+                                          ((1, 12, 7400), (9, 7339)), ((70000, 3, 5), (2, 3)),
+                                          ((1, 24600, 2), (24577, 1))])
+def test_match_template_matches_plain_on_card(cuda_device, shape, tshape):
+    """K19 at odd byte offsets, at the template limit (66,049 and 66,051 pixels,
+    past the default 48 KB of shared memory), with a template staged in two
+    chunks, past 65,535 frames, and a 1x1 map."""
+    for offset in (0, 1, 3):
+        frames = _offset_frames(shape, offset, sum(shape) + offset, cuda_device)
+        tmpl = _offset_frames(tshape, 0, 7, cuda_device)
+        got = K.match_template(frames, tmpl)
+        assert got.is_cuda and torch.equal(got, K.match_template_plain(frames, tmpl)), offset
+    big = torch.zeros((1, 10, 20000), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        K.match_template(big, torch.zeros((4, 16513), dtype=torch.uint8, device=cuda_device))
+
+
+def _no_sync(fn, *args):
+    """``fn(*args)`` with the counts at 0 and any host sync raising; the counts after."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in K.launch_counts().items() if v}
+
+
+@pytest.mark.cuda
+def test_match_template_and_best_match_on_card(cuda_device):
+    lena = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/lena.pgm")
+    frames = torch.from_numpy(np.stack([np.roll(lena, 11 * i, axis=1) for i in range(6)]))
+    tmpl = frames[0, 100:132, 60:92].contiguous()
+    scores, counts = _no_sync(gt.match_template, frames.to(cuda_device), tmpl.to(cuda_device))
+    assert counts == {"match_template": 1}
+    assert torch.equal(scores.cpu(), gt.match_template(frames, tmpl))
+    x, y = gt.find_best_match(scores)
+    assert x.is_cuda and x.dtype == torch.int32
+    for a, b in zip((x, y), gt.find_best_match(gt.match_template(frames, tmpl))):
+        assert torch.equal(a.cpu(), b)
+    assert int(scores[0, y[0], x[0]]) == 255
+    ties = np.random.default_rng(3).integers(0, 3, (4, 2, 37, 53), dtype=np.uint8)
+    ties[1, 1] = 0
+    for a, b in zip(gt.find_best_match(torch.from_numpy(ties).to(cuda_device)),
+                    gt.find_best_match(torch.from_numpy(ties))):
+        assert torch.equal(a.cpu(), b)
+
+
+def _twelve_blobs():
+    """``benchmarks/bench_all.py:255-258``: 12 rectangles on 480 x 640."""
+    img = np.zeros((480, 640), np.uint8)
+    for r in range(3):
+        for c in range(4):
+            img[120 * r + 20:120 * r + 100, 160 * c + 30:160 * c + 130] = 255
+    return img
+
+
+def _contour_frames():
+    noise = ((np.random.default_rng(0).random((12, 12)) > 0.45) * 255).astype(np.uint8)
+    dense = ((np.random.default_rng(1).random((64, 80)) > 0.5) * 255).astype(np.uint8)
+    large = np.zeros((965, 965), np.uint8)  # past K20's shared-memory bitmaps: the byte path
+    large[:480, :640] = _twelve_blobs()
+    large[600:900, 100:960] = 255
+    return {"spiral": spiral(40, 128), "spiral_256": spiral(256, 256), "snake": snake(),
+            "noise_step_bound": noise, "noise_64x80": dense, "twelve_blobs": _twelve_blobs(),
+            "large_965x965": large}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spiral", "spiral_256", "snake", "noise_step_bound",
+                                  "noise_64x80", "twelve_blobs", "large_965x965"])
+def test_contour_matches_plain_on_card(cuda_device, name):
+    """K20 in its three modes against ``contour_plain``: rows, flags, steps and masks."""
+    img = _contour_frames()[name]
+    g = torch.from_numpy(img).to(cuda_device)
+    table, lm, _ = gt.blobs(g, 200)
+    fy, fx = np.argwhere(img > 128)[0]
+    carried = torch.zeros_like(g)
+    carried[::7, ::5] = 8
+    carried[3::7, 2::5] = 9
+    for kw in ({"start": (int(fx), int(fy))}, {"start": (-1, 0)}, {"start": (int(fx), int(fy))},
+               {"table": table, "label_map": lm, "max_contours": 64},
+               {"table": table, "label_map": lm, "largest": True}):
+        for mask in (torch.zeros_like(g), carried):
+            v1, v2 = mask.clone(), mask.clone()
+            got = K.contour(g, v1, **kw)
+            want = K.contour_plain(g, v2, **kw)
+            for a, b in zip(got, want):
+                assert (a is None and b is None) or torch.equal(a, b), (name, kw.keys())
+            assert torch.equal(v1, v2)
+    if name == "noise_step_bound":
+        rows, _, steps = K.contour(g, torch.zeros_like(g), start=(int(fx), int(fy)))
+        assert steps.tolist() == [4 * 12 * 12 + 8]
+
+
+@pytest.mark.cuda
+def test_contour_entry_points_launch_once_on_card(cuda_device):
+    img = _twelve_blobs()
+    g = torch.from_numpy(img).to(cuda_device)
+    found_on_card, counts = _no_sync(gt.find_contours, g, 16, 64)
+    assert counts == {"ccl": 1, "contour": 1}
+    assert int(found_on_card.n) == 12
+    on_cpu = gt.find_contours(torch.from_numpy(img), 16, 64)
+    for a, b in zip([found_on_card.n, *found_on_card.box, *found_on_card.start,
+                     found_on_card.length, found_on_card.visited],
+                    [on_cpu.n, *on_cpu.box, *on_cpu.start, on_cpu.length, on_cpu.visited]):
+        assert torch.equal(a.cpu(), b)
+    (largest, found), counts = _no_sync(gt.largest_blob_contour, g)
+    assert counts == {"ccl": 1, "contour": 1} and bool(found)
+    c, counts = _no_sync(gt.trace_contour, g, (30, 20), largest.visited)
+    assert counts == {"contour": 1}
+    ref = gt.trace_contour(torch.from_numpy(img), (30, 20), largest.visited.cpu())
+    for a, b in zip([*c.box, *c.start, c.length, c.visited],
+                    [*ref.box, *ref.start, ref.length, ref.visited]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_match_template_sharded_on_card(cuda_device):
+    frames = _frames((4, 64, 96), 81, cuda_device)
+    for shape in ((1, 4), (2, 4)):
+        mesh = gt.parallel.make_mesh(shape, devices=[cuda_device] * 8)
+        for th, tw in ((5, 7), (16, 16), (40, 24)):
+            tmpl = _frames((th, tw), th, cuda_device)
+            got, counts = _no_sync(gt.parallel.match_template_sharded, frames, tmpl, mesh)
+            assert counts == {"match_template": shape[0] * shape[1]}  # a shard each
+            assert torch.equal(got, gt.match_template(frames, tmpl))
