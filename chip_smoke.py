@@ -59,14 +59,17 @@ orb_extract, track, the scanner, config #2, the resize, the sharded
 preprocess and the template and contour entry points (``torch.profiler``:
 device time by kernel and op, idle share, host enqueue time), takes K4's, K6's, K7's, K8's and K9's device time from the
 profiler (K8 also at each of ``track``'s six calls; with ``--parent DIR``, K4,
-K8 and K10 of DIR's ``csrc/`` in turns with the committed ones), K10's at
-``scan``'s call, and
+K8, K10, K19 and K20 of DIR's ``csrc/`` in turns with the committed ones),
+K10's at ``scan``'s call, K20's at ``find_contours``' and
+``largest_blob_contour``'s calls and on a spiral trace, and
 measures K5's real work: each window's exit stage on two faces frames (the
 plain version with the cascade cut to its first s stages), the weaks a window
 runs and the divergence of 32 neighbouring windows, from which K5's bound is
-counted; K20's bound is its walks' steps times one dependent shared-memory
-load (``SHARED_LOAD_LATENCY_CYCLES``, which ``chip_sweep.py --source contour``
-measures).  K19's is its correlation's byte products at the int8 tensor rate.
+counted; K20's bound is its longest walk's steps (the walks of a call run
+side by side) times one dependent shared-memory load
+(``SHARED_LOAD_LATENCY_CYCLES``, which ``chip_sweep.py --source contour``
+measures).  K19's is its correlation's byte products at the int8 tensor rate,
+and its design's own ceiling the products its tensor-core tiles issue.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
@@ -86,6 +89,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -365,23 +369,41 @@ def card_line():
 
 class WithEntries:
     """Stands in for the committed library while another library is loaded: the
-    other library's entries, and the committed library's ``gs_error_string`` and
-    every entry the other library does not define (a case that runs a whole
-    entry point, such as ``scan``, calls those)."""
+    other library's entries (or their stand-ins in ``overrides``), and the
+    committed library's ``gs_error_string`` and every entry the other library
+    does not define (a case that runs a whole entry point, such as ``scan``,
+    calls those)."""
 
-    def __init__(self, lib, committed):
+    def __init__(self, lib, committed, overrides=None):
         self._lib, self._committed = lib, committed
+        self._overrides = overrides or {}
         self.gs_error_string = committed.gs_error_string
 
     def __getattr__(self, name):
+        if name in self._overrides:
+            return self._overrides[name]
         try:
             return getattr(self._lib, name)
         except AttributeError:
             return getattr(self._committed, name)
 
 
-# K4's, K8's and K10's files (K7 shares the second)
-PARENT_SOURCES = ("integral.cu", "patches.cu", "warp.cu")
+def older_entries(lib, contour_source):
+    """Stand-ins for the entries of ``lib``, built from an earlier tree, whose C
+    arguments differ from the committed ones: a ``gs_contour`` without the
+    scratch ``path`` argument (before the side-by-side walks) is called with
+    the committed arguments less that one."""
+    if "void* path" in contour_source:
+        return {}
+    fn = lib.gs_contour
+    sig = _build._SIGNATURES["gs_contour"]
+    fn.argtypes = (*sig[:-2], sig[-1])
+    fn.restype = ctypes.c_int
+    return {"gs_contour": lambda *args: fn(*args[:-2], args[-1])}
+
+
+# K4's, K8's, K10's, K19's and K20's files (K7 shares the second)
+PARENT_SOURCES = ("integral.cu", "patches.cu", "warp.cu", "template.cu", "contour.cu")
 
 
 def parent_library(parent):
@@ -398,27 +420,31 @@ def parent_library(parent):
     path = out / "libparent.so"
     _build._run_all([_build.link_command(objs, path)])
     lib = ctypes.CDLL(str(path))
-    for name in ("gs_integral", "gs_orb_moments", "gs_orb_brief", "gs_quad_warp"):
+    for name in ("gs_integral", "gs_orb_moments", "gs_orb_brief", "gs_quad_warp",
+                 "gs_match_template", "gs_contour"):
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
-    return WithEntries(lib, _build.library())
+    with open(srcs[PARENT_SOURCES.index("contour.cu")]) as f:
+        overrides = older_entries(lib, f.read())
+    return WithEntries(lib, _build.library(), overrides)
 
 
-def device_turns(fn, parent):
-    """``fn``'s device ms (``device_ms``) with the committed kernels and, given a
-    ``parent`` library, with its kernels too, in turns (parent, committed,
-    committed, parent, twice): (the committed median, the parent's median or
-    None).  Now and then one session reads far below the others; a median of
-    four leaves such a reading out."""
+def device_turns(fn, parent, kernel=None):
+    """``fn``'s device ms (``device_ms``, over the kernels whose name holds
+    ``kernel``) with the committed kernels and, given a ``parent`` library, with
+    its kernels too, in turns (parent, committed, committed, parent, twice):
+    (the committed median, the parent's median or None).  Now and then one
+    session reads far below the others; a median of four leaves such a reading
+    out."""
     if parent is None:
-        return device_ms(fn), None
+        return device_ms(fn, kernel=kernel), None
     committed = _build.library()
     ours, theirs = [], []
     try:
         for lib in (parent, committed, committed, parent) * 2:
             _build._lib = lib
-            (theirs if lib is parent else ours).append(device_ms(fn))
+            (theirs if lib is parent else ours).append(device_ms(fn, kernel=kernel))
     finally:
         _build._lib = committed
     return statistics.median(ours), statistics.median(theirs)
@@ -2145,7 +2171,7 @@ def contour_frames(rng):
     nested[23:25, 23:25] = 255
     diagonal = _rects(20, 30, [(2, 2, 12, 12), (12, 12, 18, 25), (2, 14, 8, 20)])
     dots = np.zeros((40, 48), np.uint8)
-    dots[1::3, 1::3] = 255  # more seeds than the capacity
+    dots[1::3, 1::3] = 255  # more seeds than the capacity, more rows than a window
     one = np.zeros((9, 9), np.uint8)
     one[4, 4] = 255
     # past the shared-memory bitmaps (0.93 MP): K20 walks the bytes
@@ -2156,20 +2182,21 @@ def contour_frames(rng):
                 np.uint8), 64),
             ("noise_20x24", ((rng.random((20, 24)) > 0.5) * 255).astype(np.uint8), 100),
             ("twelve_blobs", twelve_blobs(), CONTOUR_BLOBS), ("pixels_of_128", gray, 16),
-            ("nested", nested, 16), ("diagonal", diagonal, 8), ("dots", dots, 40),
+            ("nested", nested, 16), ("diagonal", diagonal, 8), ("dots", dots, 100),
             ("single_pixel", one, 4), ("past_65535_labels", diagonal, 65536),
             ("byte_path_965x965", big, 8)]
 
 
 def _contour_modes(img, table, label_map, cap):
     """The K20 calls of a frame: traces from its first foreground pixel, a
-    background pixel and starts outside the frame, find at two capacities, largest."""
+    background pixel and starts outside the frame, find at three capacities (up
+    to more rows than one window of side-by-side walks), largest."""
     fg = np.argwhere(img > 128)
     first = (int(fg[0][1]), int(fg[0][0])) if len(fg) else (0, 0)
     h, w = img.shape
     calls = [{"start": s} for s in (first, (0, h - 1), (-1, 0), (0, -1), (w, 0), (-w - 1, 0))]
     calls += [{"table": table, "label_map": label_map, "max_contours": m}
-              for m in sorted({min(cap, 3), min(cap, 16)})]
+              for m in sorted({min(cap, 3), min(cap, 16), min(cap, 80)})]
     calls.append({"table": table, "label_map": label_map, "largest": True})
     return calls
 
@@ -2336,7 +2363,29 @@ def phase_contour_template_path(chk, dev):
     return launches
 
 
-def phase_contour_template_timing(card, dev):
+def k19_design(n, h, w, th, tw):
+    """Which of K19's designs takes an (n, h, w) batch and a (th, tw) template
+    ("mma" or "int32", by ``csrc/template.cu``'s kMmaMinWidth and
+    kMmaMaxWidth), and the byte products the tensor-core design issues: each
+    warp of each band, for each template row, a 16 x 8 x 32 product for each
+    of its kMmaR row tiles and each (chunk, column tile) pair whose Toeplitz
+    tile is not all zero."""
+    with open(os.path.join(HERE, "grayskull_tpu_torch", "csrc", "template.cu")) as f:
+        src = f.read()
+    c = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+         for name in ("kMmaMinWidth", "kMmaMaxWidth", "kMmaQ", "kMmaR", "kMmaWarpsX",
+                      "kMmaWarpsY")}
+    if not c["kMmaMinWidth"] <= tw <= c["kMmaMaxWidth"]:
+        return "int32", None
+    q, smax = c["kMmaQ"], (tw + 14) // 16
+    pairs = sum(1 for u in range(0, q + smax, 2) for j in range(q) if -1 <= u - j <= smax)
+    rh, rw = h - th + 1, w - tw + 1
+    bands = n * -(-rh // (8 * c["kMmaR"] * c["kMmaWarpsY"])) * -(-rw // (16 * q * c["kMmaWarpsX"]))
+    warps = bands * c["kMmaWarpsX"] * c["kMmaWarpsY"]
+    return "mma", warps * th * c["kMmaR"] * pairs * 16 * 8 * 32
+
+
+def phase_contour_template_timing(card, dev, parent=None):
     frames = match_batch(dev)
     tmpl = frames[0][MATCH_TMPL].contiguous()
     n, h, w = frames.shape
@@ -2356,8 +2405,9 @@ def phase_contour_template_timing(card, dev):
     # K19: the SSD is sum I^2 - 2 sum I*T + sum T^2, exact in integers, so the card's
     # least time is the correlation's byte products at the int8 tensor rate (a
     # multiply-add as two operations); the windowed sums of I^2 are not counted.
-    # The committed design's own ceiling is 2 INT32 instructions (__vabsdiffu4,
-    # __dp4a) each 4 squared differences.
+    # The committed design's own ceiling: the products it issues (its Toeplitz
+    # tiles' zeros too) at that rate, or, for a template on the INT32 design, 2
+    # INT32 instructions (__vabsdiffu4, __dp4a) each 4 squared differences.
     diffs = n * (h - th + 1) * (w - tw + 1) * th * tw
     F = torch.nn.functional
     frames_f = frames.to(torch.float32)[:, None]
@@ -2376,13 +2426,20 @@ def phase_contour_template_timing(card, dev):
         conv_ms, "conv2d of the float32 frames with the template, cudnn.benchmark on (the "
                  "correlation alone, not the SSD; cudnn.allow_tf32="
                  f"{torch.backends.cudnn.allow_tf32}): a yardstick")}
+    design, issued = k19_design(n, h, w, th, tw)
+    k19_ms, k19_parent_ms = device_turns(lambda: K.match_template(frames, tmpl), parent)
     times["match_template"].update(
-        device_ms=device_ms(lambda: K.match_template(frames, tmpl)),
-        design_ceiling_ms=ops_ms({"int32": diffs / 2}),
-        design_ceiling="the committed design's INT32 issue time: __vabsdiffu4 + __dp4a each "
-                       "4 squared differences")
+        device_ms=k19_ms, parent_device_ms=k19_parent_ms, design=design,
+        design_ceiling_ms=ops_ms({"int8_tensor": 2 * issued} if design == "mma" else
+                                 {"int32": diffs / 2}),
+        design_products=issued if design == "mma" else None,
+        design_ceiling="the tensor-core design's issued byte products (m16n8k32 tiles, the "
+                       "Toeplitz zeros included) at the int8 tensor rate" if design == "mma" else
+                       "the INT32 design's issue time: __vabsdiffu4 + __dp4a each 4 squared "
+                       "differences")
 
-    # K20 at find_contours' call: its walks' steps, each at least one dependent load
+    # K20 at find_contours' call: the walks side by side, so a call's chain is
+    # its longest walk, each step at least one dependent shared-memory load
     table, label_map, _ = gt.blobs(cim, CONTOUR_BLOBS)
     vis = torch.zeros_like(cim)
 
@@ -2391,9 +2448,26 @@ def phase_contour_template_timing(card, dev):
         return K.contour(cim, vis, table=table, label_map=label_map, max_contours=CONTOUR_CAP)
 
     _, _, steps = walks()
-    n_steps = int(steps.sum())
+    n_steps, longest = int(steps.sum()), int(steps.max())
     walk_ms = timeit(walks) * 1e3 - timeit(vis.zero_) * 1e3  # events, the memset apart
-    walk_device_ms = device_ms(walks, kernel="contour_b")  # K20 alone, either template
+    # K20 alone (either template), against the parent's in turns
+    walk_device_ms, walk_parent_ms = device_turns(walks, parent, kernel="contour_b")
+    # the single walks: largest_blob_contour's, and a trace round the 40 x 128 spiral
+
+    def largest():
+        vis.zero_()
+        return K.contour(cim, vis, table=table, label_map=label_map, largest=True)
+
+    sp = torch.from_numpy(spiral(40, 128)).to(dev)
+    sp_vis = torch.zeros_like(sp)
+
+    def trace():
+        sp_vis.zero_()
+        return K.contour(sp, sp_vis, start=(0, 39))
+
+    largest_steps, spiral_steps = int(largest()[2].sum()), int(trace()[2].sum())
+    largest_ms, largest_parent_ms = device_turns(largest, parent, kernel="contour_b")
+    spiral_ms, spiral_parent_ms = device_turns(trace, parent, kernel="contour_b")
     # the same walks on a frame past the shared-memory bitmaps: the byte path
     wide = torch.zeros((1000, 1000), dtype=torch.uint8, device=dev)
     wide[:480, :640] = cim
@@ -2405,7 +2479,7 @@ def phase_contour_template_timing(card, dev):
         return K.contour(wide, wide_vis, table=wide_table, label_map=wide_map,
                          max_contours=CONTOUR_CAP)
 
-    wide_steps = int(wide_walks()[2].sum())
+    wide_steps = int(wide_walks()[2].max())
     wide_ms = timeit(wide_walks) * 1e3 - timeit(wide_vis.zero_) * 1e3
     hz = OP_RATES["fadd_chain"] * FADD_LATENCY_CYCLES
     mask = torch.zeros_like(cim)
@@ -2415,26 +2489,39 @@ def phase_contour_template_timing(card, dev):
         return K.contour_plain(cim, mask, table=table, label_map=label_map,
                                max_contours=CONTOUR_CAP)
 
+    def per_step(ms, n):
+        return None if ms is None else ms / n * 1e6
+
     # bytes: each step's 8 neighbours and mask byte
     times["contour"] = kernel_entry(
         walk_ms, timeit(plain_walks, iters=1, repeat=1, warmup=1) * 1e3, 9 * n_steps,
-        {"shared_load_chain": n_steps}, None, "none: no contour walk in PyTorch")
-    times["contour"].update(device_ms=walk_device_ms, steps=n_steps,
-                            ms_per_step=walk_ms / n_steps, byte_path_ms=wide_ms,
-                            byte_path_steps=wide_steps,
-                            step_bound="one dependent shared-memory load a step, "
-                                       f"{SHARED_LOAD_LATENCY_CYCLES} cycles (chip_sweep.py "
-                                       "--source contour) at the top SM clock")
+        {"shared_load_chain": longest}, None, "none: no contour walk in PyTorch")
+    times["contour"].update(device_ms=walk_device_ms, parent_device_ms=walk_parent_ms,
+                            steps=n_steps, longest_walk_steps=longest,
+                            ns_per_longest_step=walk_device_ms / longest * 1e6,
+                            byte_path_ms=wide_ms, byte_path_longest_steps=wide_steps,
+                            step_bound="the longest walk's steps, one dependent shared-memory "
+                                       f"load each, {SHARED_LOAD_LATENCY_CYCLES} cycles "
+                                       "(chip_sweep.py --source contour) at the top SM clock")
     emit("template_contour_device_time", card=card,
-         k19_device_ms=times["match_template"]["device_ms"], k20_event_ms=walk_ms,
-         k20_device_ms=walk_device_ms, k20_steps=n_steps,
-         k20_ns_per_step=walk_ms / n_steps * 1e6, k20_cycles_per_step=walk_ms / n_steps * 1e-3 * hz,
-         k20_byte_path_ms=wide_ms, k20_byte_path_steps=wide_steps,
-         k20_byte_path_ns_per_step=wide_ms / wide_steps * 1e6,
-         source="K20: CUDA events (timeit) of the memset and the kernel less those of the "
-                "memset; device: torch.profiler device events of K20's kernel over 20 calls "
-                "after a warm-up call; byte path: the 12-blob frame in the corner of a "
-                "1000x1000 frame")
+         k19_device_ms=k19_ms, k19_parent_device_ms=k19_parent_ms, k19_design=design,
+         k20_event_ms=walk_ms, k20_device_ms=walk_device_ms,
+         k20_parent_device_ms=walk_parent_ms, k20_steps=n_steps, k20_longest_walk_steps=longest,
+         k20_ns_per_longest_step=per_step(walk_device_ms, longest),
+         k20_cycles_per_longest_step=walk_device_ms / longest * 1e-3 * hz,
+         k20_largest_device_ms=largest_ms, k20_largest_parent_device_ms=largest_parent_ms,
+         k20_largest_steps=largest_steps,
+         k20_largest_ns_per_step=per_step(largest_ms, largest_steps),
+         k20_largest_parent_ns_per_step=per_step(largest_parent_ms, largest_steps),
+         k20_spiral_device_ms=spiral_ms, k20_spiral_parent_device_ms=spiral_parent_ms,
+         k20_spiral_steps=spiral_steps, k20_spiral_ns_per_step=per_step(spiral_ms, spiral_steps),
+         k20_spiral_parent_ns_per_step=per_step(spiral_parent_ms, spiral_steps),
+         k20_byte_path_ms=wide_ms, k20_byte_path_longest_steps=wide_steps,
+         source="device: torch.profiler device events of the kernel over 20 calls after a "
+                "warm-up call (with a parent, the median of 4 turns each: parent, committed, "
+                "committed, parent, twice); K20 events: CUDA events (timeit) of the memset "
+                "and the kernel less those of the memset; byte path: the 12-blob frame in "
+                "the corner of a 1000x1000 frame; spiral: trace_contour from (0, 39)")
     for name, entry in times.items():
         emit("kernel_time", card=card, kernel=name,
              shape=list(frames.shape) if name == "match_template" else list(cim.shape), **entry)
@@ -2449,8 +2536,9 @@ def phase_contour_template_timing(card, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="an earlier commit's tree: its K4, K8 and K10 are timed "
-                                     "beside the committed ones by the profiler, in turns")
+    ap.add_argument("--parent", help="an earlier commit's tree: its K4, K8, K10, K19 and K20 "
+                                     "are timed beside the committed ones by the profiler, in "
+                                     "turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2493,7 +2581,7 @@ def main():
     del scan_batch, faces_batch, orb_frames
     times.update(phase_dense_timing(dense_batch, dense_binary, card))
     del dense_batch, dense_binary
-    times.update(phase_contour_template_timing(card, dev))
+    times.update(phase_contour_template_timing(card, dev, parent))
 
     # each path ran with the counts at 0 and launches only its own kernels
     launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]

@@ -141,15 +141,20 @@ to 1000x800 pages with the corners ``scan`` finds), one of its frames, the
 steep and extreme quads of ``chip_smoke.WARP_QUADS`` on the 8 frames, the
 (347, 200) page, and 2 frames to a 4000x3000 page.  Device time too.
 
-``--source template``: K19's placement rows a thread (``kRows``: 1, as the
-first design, 2, 8) and warps a block (``kWarps``: 4, 16), on 64 frames of
-lena tiled to 480x640 with templates of 32x32 (``bench_all.py``'s), 8x8,
-64x48 and 16x100.
+``--source template``: K19's two designs (every template on the INT32
+design, ``int32_all``, or from width 1 on the tensor cores, ``mma_from1``:
+the crossover) and the tensor-core design's tiles (``kMmaR``, ``kMmaQ``,
+warps a block), staging (``kMmaStageBytes``, ``kStageRows``) and row unroll,
+with two ablations (no win(I^2), no products; timed, not checked), at the
+templates of ``TEMPLATE_SHAPES``: 1x1, 8x8, 32x32 (``bench_all.py``'s),
+64x48 and 16x100 on 64 frames of lena tiled to 480x640, and 24,577x1,
+257x257 and 9x7,339 on fewer frames.
 
 ``--source contour``: K20 with every frame walked on its bytes
-(``kMaxBitmapBytes`` 0) against the shared-memory bitmaps, at
-``find_contours``' and ``largest_blob_contour``'s calls on the 12-blob frame
-and a spiral trace that runs to the step bound, each on a fresh mask; and a
+(``kMaxBitmapBytes`` 0) against the shared-memory bitmaps, and with 16 warps
+a block (windows of 16 walks), at ``find_contours``' and
+``largest_blob_contour``'s calls on the 12-blob frame and a spiral trace that
+runs to the step bound, each on a fresh mask; and a
 probe of the card's dependent-load latency from shared memory and through L1
 (one thread chasing a chain of indices), the latency behind K20's bound
 (``chip_smoke.SHARED_LOAD_LATENCY_CYCLES``).
@@ -174,6 +179,7 @@ from chip_smoke import (CONTOUR_BLOBS, CONTOUR_CAP, DENSE_C, DENSE_N, DENSE_R, F
                         ORB_CAP, ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_CAP, SCAN_N, SCAN_PAGE,
                         WARP_QUADS,
                         WithEntries, _aruco, alternate_windows, brief_args, card_line, device_ms,
+                        older_entries,
                         document_batch, lena_batch, match_batch, receipt_batch, spiral,
                         track_levels, twelve_blobs)
 import grayskull_tpu_torch as gt
@@ -1870,22 +1876,53 @@ def warp_cases(dev):
 
 TEMPLATE_VARIANTS = {
     "committed": lambda s: s,
-    # rows 1: a thread's 4 placements of one row, each frame word serving one template row
-    **{f"rows{r}": const("kRows", r) for r in (1, 2, 8)},
-    **{f"warps{w}": const("kWarps", w) for w in (4, 16)},
+    # every template on the INT32 design (PR 15's kernel), or every one up to
+    # kMmaMaxWidth on the tensor cores: the crossover
+    "int32_all": const("kMmaMinWidth", 1 << 20),
+    "mma_from1": const("kMmaMinWidth", 1),
+    # the tensor-core design's tiles: rows and columns a warp, warps a block
+    **{f"r{r}": const("kMmaR", r) for r in (1, 4)},
+    "r4_warps2x1": chain(const("kMmaR", 4), const("kMmaWarpsY", 1)),
+    "q2": const("kMmaQ", 2),
+    "warps1x4": chain(const("kMmaWarpsX", 1), const("kMmaWarpsY", 4)),
+    "warps4x1": chain(const("kMmaWarpsX", 4), const("kMmaWarpsY", 1)),
+    "stage32k": const("kMmaStageBytes", "32 * 1024"),
+    "stage_rows2": const("kStageRows", 2),
+    "stage_rows8": const("kStageRows", 8),
+    "unroll_i4": lambda s: edit(s, "#pragma unroll 2\n  for (int i = c0; i < c1; ++i) {",
+                                "#pragma unroll 4\n  for (int i = c0; i < c1; ++i) {"),
 }
+# the tensor-core design without its win(I^2) sums, or with each product tile
+# replaced by an XOR of its registers into the sums (timed, not checked)
+TEMPLATE_ABLATIONS = {
+    "no_win": lambda s: edit(
+        s, "      column_squares(fs, fp, c0, c1, rows, cols, vp, vs);\n", "",
+        "    row_squares(vs, vp, tw, rows, min(kBandCols, rw - x0), ws);\n", ""),
+    "no_mma": lambda s: replace_span(
+        s, '  asm volatile(\n      "mma.sync', "#else\n  // the same product",
+        "  c[0] += a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ b[1];\n"),
+}
+
+# (frames, template): bench_all.py's 64 frames of lena tiled to 480x640 with
+# its 32x32 template and four more; fewer frames for the largest templates,
+# whose plain version is a loop of th * tw steps
+TEMPLATE_SHAPES = (((64, 480, 640), (1, 1)), ((64, 480, 640), (8, 8)),
+                   ((64, 480, 640), (32, 32)), ((64, 480, 640), (64, 48)),
+                   ((64, 480, 640), (16, 100)), ((2, 24600, 640), (24577, 1)),
+                   ((4, 480, 640), (257, 257)), ((4, 16, 8000), (9, 7339)))
 
 
 def template_cases(dev):
-    """K19 at ``bench_all.py``'s call (64 frames of lena tiled to 480x640, a
-    32x32 template), and with 8x8, 64x48 and 16x100 templates."""
-    frames = match_batch(dev)
+    """K19 at every shape of TEMPLATE_SHAPES: lena tiled to the frame shape,
+    the template cut from frame 0."""
     cases = {}
-    for th, tw in ((32, 32), (8, 8), (64, 48), (16, 100)):
-        tmpl = frames[0, 200:200 + th, 300:300 + tw].contiguous()
-        cases[f"match_template_{th}x{tw}"] = (frames.shape,
-                                              lambda t=tmpl: K.match_template(frames, t),
-                                              lambda t=tmpl: K.match_template_plain(frames, t))
+    for (n, h, w), (th, tw) in TEMPLATE_SHAPES:
+        frames = torch.from_numpy(lena_batch(n, h, w, roll=11)).to(dev)
+        y, x = min(200, h - th), min(300, w - tw)
+        tmpl = frames[0, y:y + th, x:x + tw].contiguous()
+        cases[f"match_template_{th}x{tw}"] = (
+            frames.shape, lambda a=(frames, tmpl): K.match_template(*a),
+            lambda a=(frames, tmpl): K.match_template_plain(*a))
     return cases, {}
 
 
@@ -1893,6 +1930,8 @@ CONTOUR_VARIANTS = {
     "committed": lambda s: s,
     # every frame walked on its bytes, as frames past 0.93 MP are
     "bytes_always": const("kMaxBitmapBytes", 0),
+    # 16 warps a block: find's windows of 16 walks
+    "threads512": const("kStageThreads", 512),
 }
 
 
@@ -1919,7 +1958,8 @@ def contour_cases(dev):
 
 # sources whose kernels are short enough that back-to-back calls may time the
 # host: their variants are also timed by the profiler's device events
-DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl", "integral", "warp")
+DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl", "integral", "warp", "template",
+                "contour")
 
 SOURCES = {
     "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
@@ -1939,7 +1979,8 @@ SOURCES = {
     "ccl": ("ccl.cu", ("gs_ccl",), CCL_VARIANTS, CCL_ABLATIONS, ccl_cases, r"tile|border|flatten|merge|init|Used"),
     "warp": ("warp.cu", ("gs_quad_warp",), WARP_VARIANTS, WARP_ABLATIONS, warp_cases,
              r"quad_warp|Used"),
-    "template": ("template.cu", ("gs_match_template",), TEMPLATE_VARIANTS, {}, template_cases,
+    "template": ("template.cu", ("gs_match_template",), TEMPLATE_VARIANTS, TEMPLATE_ABLATIONS,
+                 template_cases,
                  r"match_template|Used"),
     "contour": ("contour.cu", ("gs_contour",), CONTOUR_VARIANTS, {}, contour_cases,
                 r"contour|Used"),
@@ -1970,7 +2011,8 @@ def mean_or_none(values):
 
 def build_variants(source, entries, variants, parent):
     """Compile every variant of ``source`` at once; return ({name: loaded library},
-    {name: ptxas lines}, {name: why it was dropped})."""
+    {name: ptxas lines}, {name: why it was dropped}, {name: stand-ins for entries
+    whose C arguments differ from the committed ones})."""
     text = (_build.CSRC_DIR / source).read_text()
     sources, failed = {}, {}
     for name, make in variants.items():
@@ -1990,7 +2032,7 @@ def build_variants(source, entries, variants, parent):
         cmd = _build.compile_command(d / source, d / f"{stem}.o") + ["-Xptxas", "-v"]
         jobs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True))
-    libs, regs = {}, {}
+    libs, regs, overrides = {}, {}, {}
     for name, (d, proc) in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
@@ -2004,8 +2046,10 @@ def build_variants(source, entries, variants, parent):
             fn = getattr(lib, entry)
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
+        if source == "contour.cu":
+            overrides[name] = older_entries(lib, sources[name])
         libs[name] = lib
-    return libs, regs, failed
+    return libs, regs, failed, overrides
 
 
 def main():
@@ -2028,13 +2072,14 @@ def main():
     card = card_line()
     t0 = time.perf_counter()
     committed = _build.library()  # the inputs come from the committed build
-    libs, regs, failed = build_variants(source, entries, {**variants, **ablations}, args.parent)
+    libs, regs, failed, overrides = build_variants(source, entries, {**variants, **ablations},
+                                                   args.parent)
     # the committed file and the --parent trees are held, not dropped: only a text edit may fail
     held = {"committed", *(os.path.basename(os.path.normpath(p)) for p in args.parent)}
     if held & set(failed):
         raise AssertionError(f"a committed or parent build failed: "
                              f"{ {k: v for k, v in failed.items() if k in held} }")
-    libs = {name: WithEntries(lib, committed) for name, lib in libs.items()}
+    libs = {name: WithEntries(lib, committed, overrides.get(name)) for name, lib in libs.items()}
     emit("sweep_build", card=card, source=source, seconds=time.perf_counter() - t0,
          variants=list(libs), failed=failed,
          ptxas={name: [r for r in lines if re.search(reg_pattern, r)]

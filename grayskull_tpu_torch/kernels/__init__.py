@@ -18,10 +18,11 @@
 * :mod:`.resize` — K14 ``resize`` (the bilinear resize, a thread per output pixel)
 * :mod:`.bandwidth` — K17 ``copy`` and K18 ``triad`` (the device-memory
   bandwidth probe, 16 bytes a thread)
-* :mod:`.template` — K19 ``match_template`` (the exact SSD of every placement,
-  four bytes an instruction)
-* :mod:`.contour` — K20 ``contour`` (the Moore walks of a call, a warp, one
-  ballot a step)
+* :mod:`.template` — K19 ``match_template`` (the exact SSD of every placement:
+  the correlation on int8 tensor cores, narrow templates four bytes an
+  instruction)
+* :mod:`.contour` — K20 ``contour`` (the Moore walks of a call, a warp each and
+  side by side, one ballot a step)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "gs_triad": (_PTR, _PTR, _PTR, _SIZE, _PTR),
     "gs_match_template": (_PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
     "gs_contour": (_PTR, _PTR, *(_INT,) * 3, _PTR, _INT, _INT, *(_PTR,) * 6, *(_INT,) * 3,
-                   *(_PTR,) * 4, _PTR),
+                   *(_PTR,) * 5, _PTR),
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,8 @@ reference vector and the ``shapes_img`` frames of
 ``tests/test_blobs_contour.py``, carried masks, single pixels, pixels of
 exactly 128, nested and touching blobs, a noise frame whose walk ends at the
 step bound, starts outside the frame, and the contour goldens.  K20's ballot
-selection and first-pixel search (``csrc/contour.cu``) are replayed in numpy.
+selection, first-pixel search and find mode (walks side by side, resolved in
+table order; ``csrc/contour.cu``) are replayed in numpy.
 
 The JAX multi-contour functions build a new ``jax.jit`` on every call (about
 1.5 s each here), so each case runs them once.
@@ -432,3 +433,156 @@ def test_jax_step_bound_overflows_past_2_29_pixels():
     jax.eval_shape(trace, jax.ShapeDtypeStruct((1, 2**27), jnp.uint8))
     with pytest.raises(OverflowError):
         jax.eval_shape(trace, jax.ShapeDtypeStruct((1, 2**29 + 64), jnp.uint8))
+
+
+# csrc/contour.cu's find mode: walks side by side, kWindow rows a window
+K20_STAGE_THREADS = int(re.search(r"constexpr int kStageThreads = (\d+);", CONTOUR_CU).group(1))
+assert "constexpr int kWindow = kStageThreads / 32;" in CONTOUR_CU
+K20_WINDOW = K20_STAGE_THREADS // 32
+
+
+def _path_walk(img, sx, sy):
+    """One of find's walks (``csrc/contour.cu:walk`` with ``PathBits``): the
+    ballot step of ``_replay_walk`` on no mask; returns (box, steps, the flat
+    indices it visited, its span x0, y0, x1, y1)."""
+    h, w = img.shape
+    max_steps = 4 * h * w + 8
+    px, py, bx, by, bw, bh, ndir, seen, steps = sx, sy, sx, sy, 1, 1, 0, False, 0
+    visited = [sy * w + sx]
+    while True:
+        m = _ballot(img, px, py)
+        steps += 1
+        if m == 0:
+            break
+        sel, ndir = _select(m, ndir)
+        px, py = px + _packed(_DX_PACKED, sel), py + _packed(_DY_PACKED, sel)
+        bx, by = min(bx, px), min(by, py)
+        bw, bh = max(bw, px + 1 - bx), max(bh, py + 1 - by)
+        at_start = px == sx and py == sy
+        if (at_start and seen) or steps >= max_steps:
+            break
+        seen = seen or at_start
+        visited.append(py * w + px)
+    visited = np.array(visited)
+    xs, ys = visited % w, visited // w
+    return (bx, by, bw, bh), steps, visited, (xs.min(), ys.min(), xs.max(), ys.max())
+
+
+def k20_find_replay(img, vis, table, label_map, max_contours):
+    """``csrc/contour.cu``'s find mode in numpy: windows of K20_WINDOW rows in
+    table order; each row's first pixel and its walk, ORing the walk's bit into
+    a map of path words and marking nothing; then, in table order, a row is
+    kept when its first pixel's mask byte is 0 and no earlier kept walk of the
+    window set a bit there; each pixel with a bit is resolved once, in the
+    span of its lowest walk: counted for the lowest kept walk when its mask
+    byte is 0, set to 255 where a kept walk reached it, its word cleared; the
+    kept rows compacted.  ``vis`` is updated in place; returns (rows, count,
+    steps) as ``contour_plain`` does."""
+    from grayskull_tpu_torch.kernels.contour import _LABEL_MAP_LIMIT, ROW_FIELDS, _first_pixel
+
+    h, w = img.shape
+    flat = vis.reshape(-1)
+    labels = table.label.numpy()
+    box_x, box_y = table.box.x.numpy(), table.box.y.numpy()
+    full_scan = labels.shape[0] >= _LABEL_MAP_LIMIT
+    rows = min(int(table.n), max_contours)
+    out = np.zeros((len(ROW_FIELDS), max_contours), np.int32)
+    out_steps = np.zeros(max_contours, np.int64)
+    path = np.zeros(h * w, np.int64)  # a bit a walk of the window
+    kept = 0
+    for k0 in range(0, rows, K20_WINDOW):
+        walks = {}
+        for j in range(min(K20_WINDOW, rows - k0)):
+            lo = 0 if full_scan else int(box_y[k0 + j]) * w + int(box_x[k0 + j])
+            px = _first_pixel(label_map, lo, int(labels[k0 + j]))
+            if px is not None:
+                box, steps, visited, span = _path_walk(img, *px)
+                path[visited] |= 1 << j
+                walks[j] = (px, box, steps, span)
+        keep = 0
+        for j, ((x, y), _, _, _) in sorted(walks.items()):
+            if flat[y * w + x] == 0 and path[y * w + x] & keep == 0:
+                keep |= 1 << j
+        length = dict.fromkeys(walks, 0)
+        for j, (_, _, _, (x0, y0, x1, y1)) in sorted(walks.items()):
+            at = (np.arange(y0, y1 + 1)[:, None] * w + np.arange(x0, x1 + 1)[None]).reshape(-1)
+            word = path[at]
+            mine = at[((word >> j) & 1 == 1) & (word & ((1 << j) - 1) == 0)]
+            word = path[mine]
+            path[mine] = 0
+            kept_bits = word & keep
+            reached = mine[kept_bits != 0]
+            lowest = kept_bits[kept_bits != 0]
+            lowest = np.log2(lowest & -lowest).astype(np.int64)
+            fresh = flat[reached] == 0
+            for lj, n in zip(*np.unique(lowest[fresh], return_counts=True)):
+                length[int(lj)] += int(n)
+            flat[reached] = 255
+        for j in range(K20_WINDOW):
+            if (keep >> j) & 1:
+                (x, y), box, steps, _ = walks[j]
+                out[:, kept] = (*box, x, y, length[j])
+                out_steps[kept] = steps
+                kept += 1
+    assert not path.any()  # the kernel leaves its scratch map zero
+    return out, kept, out_steps
+
+
+def _overlap_cases():
+    """(name, frame, max_contours, max_blobs, carried mask or None) built for
+    the side-by-side walks: a kept walk crossing the pixels of a skipped walk
+    (the first blob's start carried as visited), a walk crossing the first
+    pixel of a row past ``max_contours``, and more rows than one window."""
+    diagonal = _rects(20, 30, [(2, 2, 12, 12), (12, 12, 18, 25), (2, 14, 8, 20)])
+    skip_first = np.zeros_like(diagonal)
+    skip_first[2, 2] = 9  # the first blob's start: its walk is skipped, its pixels stay fresh
+    dots = np.zeros((40, 48), np.uint8)
+    dots[1::3, 1::3] = W  # 208 single pixels
+    return [("skipped_crossed", diagonal, 4, 4, skip_first),
+            ("past_cap_start", diagonal, 1, 4, None),
+            ("dots_100_cap_80", dots, 80, 100, None)]
+
+
+def _replay_cases():
+    cases = [(name, img, mc, mb, None) for name, img, mc, mb in _multi_cases()]
+    return cases + _overlap_cases()
+
+
+@pytest.mark.parametrize("mask", ["zero", "carried"])
+@pytest.mark.parametrize("case", _replay_cases(), ids=lambda c: c[0])
+def test_k20_side_by_side_replay(case, mask):
+    """K20's find mode replayed (walks with no marks, then the in-order
+    resolution) against ``contour_plain`` on the same mask, and against the
+    JAX ``find_contours`` on a zero mask: rows, count, steps and mask."""
+    name, img, max_contours, max_blobs, carried = case
+    table, label_map, _ = gt.blobs(img, max_blobs)
+    if mask == "zero":
+        vis = np.zeros_like(img)
+    elif carried is not None:
+        vis = carried.copy()
+    else:
+        vis = np.zeros_like(img)
+        vis[::7, ::5] = 8
+        vis[3::7, 2::5] = 9  # any non-zero byte counts as visited and keeps its value
+    got_vis = vis.copy()
+    rows, count, steps = k20_find_replay(img, got_vis, table, label_map.numpy(), max_contours)
+    want_vis = torch.from_numpy(vis.copy())
+    want = K.contour_plain(torch.from_numpy(img), want_vis, table=table, label_map=label_map,
+                           max_contours=max_contours)
+    _eq(rows, want[0].numpy(), f"{name} {mask} rows")
+    assert count == int(want[1]), name
+    _eq(steps, want[2].numpy(), f"{name} {mask} steps")
+    _eq(got_vis, want_vis.numpy(), f"{name} {mask} visited")
+    if mask == "zero" and max_blobs:
+        j = jax_find_contours(img, max_contours, max_blobs)
+        assert count == int(j.n)
+        want_rows = np.stack([*(np.asarray(v) for v in j.box),
+                              *(np.asarray(v) for v in j.start), np.asarray(j.length)])
+        _eq(rows[:, :count], want_rows[:, :count], name)
+        _eq(got_vis, j.visited, name)
+    if name == "skipped_crossed" and mask == "carried":
+        # the third blob's walk (the 6 x 13 one) goes round the skipped first
+        # blob too: it is kept and counts that blob's boundary as fresh
+        assert count == 2 and rows[6, 1] > 2 * (6 + 13) - 4
+    if name == "dots_100_cap_80":  # three windows; a carried mask skips some dots
+        assert count == 80 > 2 * K20_WINDOW if mask == "zero" else 2 * K20_WINDOW < count < 80

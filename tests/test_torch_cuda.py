@@ -1059,3 +1059,82 @@ def test_match_template_sharded_on_card(cuda_device):
             got, counts = _no_sync(gt.parallel.match_template_sharded, frames, tmpl, mesh)
             assert counts == {"match_template": shape[0] * shape[1]}  # a shard each
             assert torch.equal(got, gt.match_template(frames, tmpl))
+
+
+def _k19_widths():
+    """csrc/template.cu's crossover: the narrowest and widest templates on the tensor cores."""
+    import re
+
+    with open(__file__.rsplit("/", 2)[0] + "/grayskull_tpu_torch/csrc/template.cu") as f:
+        src = f.read()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in ("kMmaMinWidth", "kMmaMaxWidth"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tshape", [((1, 260, 300), (257, 257)), ((1, 12, 7400), (9, 7339))])
+@pytest.mark.parametrize("fill", [(255, 255), (255, 0)])
+def test_match_template_at_the_limit_on_card(cuda_device, shape, tshape, fill):
+    """All-255 frames and template (the correlation passes 2^31 and wraps in
+    s32) and a 255 frame with a 0 template (the SSD at its largest), on the
+    tensor cores (257 x 257) and on the INT32 design (9 x 7339)."""
+    frames = torch.full(shape, fill[0], dtype=torch.uint8, device=cuda_device)
+    tmpl = torch.full(tshape, fill[1], dtype=torch.uint8, device=cuda_device)
+    got = K.match_template(frames, tmpl)
+    assert torch.equal(got, torch.full_like(got, 255 if fill[1] == 255 else 0))
+    assert torch.equal(got, K.match_template_plain(frames, tmpl))
+
+
+@pytest.mark.cuda
+def test_match_template_both_sides_of_the_crossover_on_card(cuda_device):
+    """K19 at the widths on either side of each end of its tensor-core range,
+    at byte offsets 0, 1 and 3."""
+    lo, hi = _k19_widths()
+    for tw in (lo - 1, lo, hi, hi + 1):
+        for offset in (0, 1, 3):
+            frames = _offset_frames((2, 40, hi + 80), offset, tw + offset, cuda_device)
+            tmpl = _offset_frames((5, tw), 0, tw, cuda_device)
+            got = K.match_template(frames, tmpl)
+            assert torch.equal(got, K.match_template_plain(frames, tmpl)), (tw, offset)
+
+
+def _overlap_frames():
+    """(name, frame, max_contours, max_blobs): K20's side-by-side walks where
+    their paths meet, and more rows than one block's warps (on the shared-memory
+    bitmaps and on the bytes)."""
+    diagonal = np.zeros((20, 30), np.uint8)
+    for y0, x0, y1, x1 in ((2, 2, 12, 12), (12, 12, 18, 25), (2, 14, 8, 20)):
+        diagonal[y0:y1, x0:x1] = 255
+    dots = np.zeros((40, 48), np.uint8)
+    dots[1::3, 1::3] = 255
+    big_dots = np.zeros((965, 965), np.uint8)  # past the bitmaps: the byte path
+    big_dots[5:300:3, 7:40:3] = 255
+    big_dots[600:900, 100:960] = 255
+    return [("diagonal", diagonal, 4, 4), ("diagonal_cap_1", diagonal, 1, 4),
+            ("dots_cap_80", dots, 80, 100), ("dots_965x965_cap_80", big_dots, 80, 120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _overlap_frames(), ids=lambda c: c[0])
+def test_contour_find_where_walks_meet_on_card(cuda_device, case):
+    """K20's find mode against ``contour_plain`` on zero and carried masks,
+    one carried mask marking the first blob's start (its walk skipped, its
+    pixels fresh for the walk that crosses them)."""
+    name, img, max_contours, max_blobs = case
+    g = torch.from_numpy(img).to(cuda_device)
+    table, lm, _ = gt.blobs(g, max_blobs)
+    carried = torch.zeros_like(g)
+    carried[::7, ::5] = 8
+    carried[3::7, 2::5] = 9
+    skip_first = torch.zeros_like(g)
+    skip_first[int(table.box.y[0]), int(table.box.x[0])] = 9
+    for mask in (torch.zeros_like(g), carried, skip_first):
+        v1, v2 = mask.clone(), mask.clone()
+        got = K.contour(g, v1, table=table, label_map=lm, max_contours=max_contours)
+        want = K.contour_plain(g, v2, table=table, label_map=lm, max_contours=max_contours)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+        assert torch.equal(v1, v2), name
+    if name.startswith("dots"):
+        assert int(K.contour(g, torch.zeros_like(g), table=table, label_map=lm,
+                             max_contours=max_contours)[1]) == 80  # three windows of walks
