@@ -52,11 +52,26 @@ counts set to 0 just before it and read just after:
   ``find_contours``, ``largest_blob_contour`` and ``trace_contour`` (with and
   without a carried mask) on ``benchmarks/bench_all.py``'s 12-rectangle frame,
   each against the plain path on the CPU, and the goldens ``match_template``,
-  ``contour1``, ``contour2``, ``contour_visited`` and ``largest_contour``.
+  ``contour1``, ``contour2``, ``contour_visited`` and ``largest_contour``;
+* the sparse sharded paths (``grayskull_tpu_torch.parallel.sparse``) on
+  meshes of ``cuda:0``: ``label_components_sharded`` and ``blobs_sharded`` on
+  the binarized ``document.pgm`` over (1, 4) with cap 1000 (and the labels of
+  seeded noise at density 0.55), ``scan_spatial_shardmap`` on ``document.pgm``
+  and ``receipt.pgm`` to 1000x800 pages, ``orb_extract_spatial`` on aruco at
+  2,500 keypoints and a 480x640 lena frame at 500, ``match_orb_sharded`` on
+  ``track``'s aruco tables, and ``detect_faces_sharded`` on the faces path's 32
+  frames over (2, 4), each against its single-device entry point on the card,
+  with its launches and host waits counted (the sync debug mode "warn": the
+  labelling's union-find waits once a call, the others never), the scanner
+  and ORB (``exact_host`` trig) against the plain path on a CPU mesh; K10's
+  rows entry (``quad_warp_rows``) against its plain version on bands at the
+  top, the middle and the bottom, one-row bands and pages of one row or
+  column.
 
 Then it times the paths with CUDA events, profiles preprocess, detect_faces,
 orb_extract, track, the scanner, config #2, the resize, the sharded
-preprocess and the template and contour entry points (``torch.profiler``:
+preprocess, the template and contour entry points and the sparse sharded
+calls (each beside its single-device call, ``sparse_timing``) (``torch.profiler``:
 device time by kernel and op, idle share, host enqueue time), takes K4's, K6's, K7's, K8's and K9's device time from the
 profiler (K8 also at each of ``track``'s six calls; with ``--parent DIR``, K4,
 K8, K10, K19 and K20 of DIR's ``csrc/`` in turns with the committed ones),
@@ -77,7 +92,8 @@ time, and its bound again at the measured copy rate, ``bound_ms_at_copy``;
 operations are counted by kind, FP32 or INT32, at the issue rate of their
 kind from the card's SM count and top clock, or int8 products at the tensor
 cores' rate, where a row has restated them)
-and the card's ``nvidia-smi`` name and power limit, and the last line is
+and the card's ``nvidia-smi`` name and power limit (also on the ``build`` line, with
+whether the native PGM loader, ``csrc/gsio.c``, built and where), and the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and the exit code is
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
@@ -95,13 +111,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
-from grayskull_tpu_torch import libm32
+from grayskull_tpu_torch import libm32, native
 from grayskull_tpu_torch.io import read_pgm
 from grayskull_tpu_torch.core import LbpCascade, host_arrays_to
 from grayskull_tpu_torch.kernels import _build
@@ -179,6 +196,8 @@ KERNELS = {
                        "replaces": "grayskull_tpu/ops/template.py:30"},
     "contour": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/contour.cu",
                 "replaces": "grayskull_tpu/ops/contour.py:36"},
+    "quad_warp_rows": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/warp.cu",
+                       "replaces": "grayskull_tpu/ops/warp.py:68"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
@@ -2534,6 +2553,244 @@ def phase_contour_template_timing(card, dev, parent=None):
     return times
 
 
+# ---- the sparse sharded paths (parallel/sparse.py) and K10's rows entry ------------------
+# ISSUE sizes: the binarized document (1024x768) on (1, 4) with cap 1000 and noise at
+# density 0.55; the scanner on document.pgm and receipt.pgm to 1000x800 pages; ORB on
+# aruco at 2,500 keypoints and a 480x640 lena frame at 500 (threshold 20); track's aruco
+# tables matched at 300, distance 60; faces on the faces path's 32 frames over (2, 4)
+SPARSE_MESH = (1, SPACE)
+SPARSE_NOISE = 0.55
+SPARSE_MATCHES, SPARSE_DIST = 300, 60
+# K10's rows entry: (page, [(first row, rows)]): bands at the top, the middle and the
+# bottom, one-row bands, pages of one row or one column
+WARP_ROW_BANDS = [((1000, 800), [(0, 250), (250, 250), (750, 250), (0, 1), (500, 1), (999, 1)]),
+                  ((347, 200), [(0, 87), (87, 173), (346, 1)]), ((1, 10), [(0, 1)]),
+                  ((10, 1), [(0, 5), (5, 5), (9, 1)]), ((1, 1), [(0, 1)])]
+
+
+def phase_sparse_kernels(chk, rng, dev):
+    """K10's rows entry against its plain version: WARP_ROW_BANDS on the
+    document's mild, steep and extreme quads and on random frames and quads."""
+    docs = torch.from_numpy(document_batch(2)).to(dev)
+    cases = [(docs, torch.tensor([q, q], dtype=torch.int32, device=dev))
+             for q in WARP_QUADS.values()]
+    for shape in ((3, 97, 200), (2, 1, 300), (2, 300, 1)):
+        src = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        cases.append((src, torch.from_numpy(warp_edge_corners(rng, shape[0], *shape[1:])).to(dev)))
+    n_checks = 0
+    for src, corners in cases:
+        for page, bands in WARP_ROW_BANDS:
+            whole = K.quad_warp(src, corners, page)
+            for row0, rows in bands:
+                if row0 + rows > page[0]:
+                    continue
+                got = K.quad_warp_rows(src, corners, page, row0, rows)
+                what = f"{tuple(src.shape)} page {page} rows {row0}+{rows}"
+                chk.same("quad_warp_rows", got,
+                         K.quad_warp_rows_plain(src, corners, page, row0, rows), what)
+                chk.same("quad_warp_rows", got, whole[:, row0:row0 + rows], what + " vs quad_warp")
+                n_checks += 1
+        torch.cuda.synchronize()
+    emit("sparse_kernels_vs_plain", ok=True, bands=[[list(p), [list(b) for b in bs]]
+                                                    for p, bs in WARP_ROW_BANDS],
+         sources=[list(src.shape) for src, _ in cases], checks=chk.checks["quad_warp_rows"],
+         max_abs_err={"quad_warp_rows": chk.max_err["quad_warp_rows"]})
+
+
+def _counted(fn, *args, **kwargs):
+    """``fn(*args)`` with the counts set to 0 just before and read just after,
+    and every host wait counted: PyTorch's sync debug mode "warn" raises one
+    warning a synchronizing call.  Returns (output, launches, waits)."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    return out, K.launch_counts(), waits
+
+
+def faces_band_launches(cascade, h, w, nd, ns):
+    """K5's launches in detect_faces_sharded over (nd, ns): per ladder scale,
+    one a data shard and non-empty band of window rows."""
+    plan = _grid_plan(cascade, h, w, *LADDER, 1)
+    return sum(nd * sum(1 for s in range(ns) if s * -(-ny // ns) < ny) for *_, ny, _ in plan)
+
+
+def _same_leaves(chk, owner, got, ref, what):
+    """Every field of two tables (a Blobs' box and centroid flattened), by ``chk``."""
+    def leaves(t):
+        return [f for v in t for f in (v if isinstance(v, tuple) else (v,))]
+
+    for i, (a, b) in enumerate(zip(leaves(got), leaves(ref))):
+        chk.same(owner, a, b, f"{what} field {i}")
+
+
+def phase_sparse_path(chk, dev):
+    """The seven sparse sharded entry points on meshes of ``cuda:0``, each
+    against its single-device entry point on the card (computed first), with
+    its launches and host waits counted; the scanner and ORB once against the
+    plain path on a CPU mesh."""
+    par = gt.parallel
+    mesh = card_mesh(SPARSE_MESH, dev)
+    cascade = gt.load_frontalface()
+    doc = torch.from_numpy(document_batch(1)[0]).to(dev)
+    rec = torch.from_numpy(receipt_batch(1)[0]).to(dev)
+    binary = gt.preprocess_binarize(doc)
+    noise = torch.from_numpy(((np.random.default_rng(17).random(doc.shape) < SPARSE_NOISE)
+                              * 255).astype(np.uint8)).to(dev)
+    aruco = torch.from_numpy(_aruco()).to(dev)
+    lena = torch.from_numpy(lena_batch(1, ORB_H, ORB_W)[0]).to(dev)
+    tmpl = aruco[100:350, 150:450].contiguous()
+    tk, sk, _ = gt.track(tmpl, aruco, TRACK_KPS)
+    faces = torch.from_numpy(lena_batch(FACES_N, FACES_H, FACES_W, roll=7)).to(dev)
+    mesh24 = card_mesh((2, 4), dev)
+    ns = SPARSE_MESH[1]
+    scan_counts = {"blur_hist_window": ns, "otsu": 1, "ccl": ns, "quad_warp_rows": ns}
+    orb_counts = {"fast": ns, "orb_moments": ns, "orb_brief": ns}
+    faces_counts = {"integral": 8,
+                    "lbp_eval_scale": faces_band_launches(cascade, FACES_H, FACES_W, 2, 4)}
+    # (label, sharded call, single-device call, launches wanted, host waits wanted, owner)
+    calls = [
+        ("label_components_sharded document", (par.label_components_sharded, binary, mesh),
+         (gt.label_components, binary), {"ccl": ns}, 1, "ccl"),
+        (f"label_components_sharded noise {SPARSE_NOISE}", (par.label_components_sharded, noise,
+                                                            mesh),
+         (gt.label_components, noise), {"ccl": ns}, 1, "ccl"),
+        ("blobs_sharded document", (par.blobs_sharded, binary, mesh, SCAN_CAP),
+         (lambda x, cap: gt.blobs(x, cap)[0], binary, SCAN_CAP), {"ccl": ns}, 1, "ccl"),
+        ("scan_spatial_shardmap document", (par.scan_spatial_shardmap, doc, mesh, SCAN_PAGE,
+                                            SCAN_CAP),
+         (gt.scan, doc, SCAN_PAGE, SCAN_CAP), scan_counts, 1, "quad_warp_rows"),
+        ("scan_spatial_shardmap receipt", (par.scan_spatial_shardmap, rec, mesh, SCAN_PAGE,
+                                           SCAN_CAP),
+         (gt.scan, rec, SCAN_PAGE, SCAN_CAP), scan_counts, 1, "quad_warp_rows"),
+        ("orb_extract_spatial aruco", (par.orb_extract_spatial, aruco, mesh, TRACK_KPS, ORB_THR),
+         (gt.orb_extract, aruco, TRACK_KPS, ORB_THR), orb_counts, 0, None),
+        ("orb_extract_spatial lena 480x640", (par.orb_extract_spatial, lena, mesh, ORB_CAP,
+                                              ORB_THR),
+         (gt.orb_extract, lena, ORB_CAP, ORB_THR), orb_counts, 0, None),
+        ("match_orb_sharded track aruco", (par.match_orb_sharded, tk, sk, mesh, SPARSE_MATCHES,
+                                           SPARSE_DIST),
+         (gt.match_orb, tk, sk, SPARSE_MATCHES, SPARSE_DIST), {}, 0, "match"),
+        (f"detect_faces_sharded {FACES_N} frames (2, 4)",
+         (par.detect_faces_sharded, faces, mesh24, cascade, FACES_CAP),
+         (gt.detect_faces, faces, cascade, FACES_CAP), faces_counts, 0, "lbp_eval_scale"),
+    ]
+    launches = {name: 0 for name in KERNELS}
+    report = []
+    for label, (fn, *args), (single, *single_args), want, want_waits, owner in calls:
+        ref = single(*single_args)
+        got, counts, waits = _counted(fn, *args)
+        launched = {k: v for k, v in counts.items() if v}
+        if launched != want:
+            raise AssertionError(f"{label} launched {launched}, want {want}")
+        if waits != want_waits:
+            raise AssertionError(f"{label} waited on the host {waits} times, want {want_waits}")
+        for k, v in counts.items():
+            launches[k] += v
+        if owner is None:
+            _same_tables(chk, got, ref, label)
+        elif owner == "match":
+            for a, b in zip(got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label} differs from match_orb on the card")
+        elif isinstance(got, tuple) and label.startswith("scan"):
+            chk.same("quad_warp_rows", got[0], ref[0], f"{label} page")
+            chk.same("ccl", got[1], ref[1], f"{label} corners")
+        elif isinstance(got, torch.Tensor):
+            chk.same(owner, got, ref, label)
+        else:
+            _same_leaves(chk, owner, got, ref, label)
+        report.append({"call": label, "launches": launched, "host_waits": waits})
+    # once against the plain path on a CPU mesh: the scanner, and ORB in exact_host trig
+    cpu_mesh = gt.parallel.make_mesh(SPARSE_MESH, devices=["cpu"] * ns)
+    page, corners = par.scan_spatial_shardmap(doc, mesh, SCAN_PAGE, SCAN_CAP)
+    cpu_page, cpu_corners = par.scan_spatial_shardmap(doc.cpu(), cpu_mesh, SCAN_PAGE, SCAN_CAP)
+    if not (torch.equal(page.cpu(), cpu_page) and torch.equal(corners.cpu(), cpu_corners)):
+        raise AssertionError("scan_spatial_shardmap: card differs from the plain path on the CPU")
+    libm32.use_exact_host_libm(True)
+    try:
+        _equal_on_cpu(par.orb_extract_spatial(aruco, mesh, TRACK_KPS, ORB_THR),
+                      par.orb_extract_spatial(aruco.cpu(), cpu_mesh, TRACK_KPS, ORB_THR),
+                      "exact_host orb_extract_spatial")
+    finally:
+        libm32.use_exact_host_libm(False)
+    emit("sparse_path", ok=True, mesh=list(SPARSE_MESH), faces_mesh=[2, 4],
+         devices=[str(d) for d in mesh.devices.flat], calls=report, launches=launches,
+         blobs=int(gt.parallel.blobs_sharded(binary, mesh, SCAN_CAP).n),
+         corners_document=corners.tolist(),
+         cpu_checked=["scan_spatial_shardmap document", "orb_extract_spatial aruco (exact_host)"],
+         host_waits="counted in sync debug mode 'warn', one warning a synchronizing call")
+    inputs = {"binary": binary, "noise": noise, "doc": doc, "rec": rec, "aruco": aruco,
+              "lena": lena, "tk": tk, "sk": sk, "faces": faces, "corners": corners,
+              "calls": calls}
+    return launches, inputs
+
+
+def band_footprint(corners, size, row0, rows, sh, sw):
+    """The source box (rows, columns) that page rows ``row0 .. row0 + rows - 1``
+    sample: the coordinates are bilinear in (u, v), so their extremes lie at
+    the band's four corner pixels; each sample also reads the next row and
+    column."""
+    c = corners.reshape(4, 2).cpu().numpy().astype(np.float64)
+    dh = size[0]
+    pts = []
+    for u in (0.0, 1.0):
+        for v in (row0 / (dh - 1) if dh > 1 else 0.0, (row0 + rows - 1) / (dh - 1) if dh > 1
+                  else 0.0):
+            top = c[0] * (1 - u) + c[1] * u
+            bot = c[3] * (1 - u) + c[2] * u
+            pts.append(top * (1 - v) + bot * v)
+    pts = np.clip(np.array(pts), 0, [sw - 1, sh - 1])
+    lo, hi = np.floor(pts.min(0)), np.minimum(np.floor(pts.max(0)) + 1, [sw - 1, sh - 1])
+    return int(hi[1] - lo[1] + 1), int(hi[0] - lo[0] + 1)
+
+
+def phase_sparse_timing(card, inputs):
+    """Each sharded call's ms (CUDA events) beside its single-device call's,
+    with the sharded call's idle share; K10's rows entry at the scanner's
+    middle band."""
+    rows_out = []
+    for label, (fn, *args), (single, *single_args), _, waits, _ in inputs["calls"]:
+        t_sharded = timeit(fn, *args)
+        t_single = timeit(single, *single_args)
+        prof = profile_calls(fn, *args)
+        rows_out.append({"call": label, "sharded_ms": t_sharded * 1e3,
+                         "single_device_ms": t_single * 1e3,
+                         "sharded_over_single": t_sharded / t_single, "host_waits": waits,
+                         "idle_share": prof["idle_share"], "device_busy_ms": prof["device_busy_ms"],
+                         "enqueue_ms": prof["enqueue_ms"],
+                         "device_ms_by_kernel": prof["device_ms_by_kernel"][:6]})
+    emit("sparse_timing", card=card, mesh=list(SPARSE_MESH), calls=rows_out,
+         windows="median of 3 windows of 20 calls after 2 warm-up calls (CUDA events); idle "
+                 "share: chip_smoke.profile_calls over 10 calls")
+    doc = inputs["doc"][None].contiguous()
+    corners = inputs["corners"][None].contiguous()
+    sh, sw = doc.shape[1:]
+    dh, dw = SCAN_PAGE
+    band = dh // SPARSE_MESH[1]
+    row0 = band  # the second shard's band
+    fr, fc = band_footprint(corners, SCAN_PAGE, row0, band, sh, sw)
+    entry = kernel_entry(
+        timeit(K.quad_warp_rows, doc, corners, SCAN_PAGE, row0, band) * 1e3,
+        timeit(K.quad_warp_rows_plain, doc, corners, SCAN_PAGE, row0, band, iters=3) * 1e3,
+        fr * fc + 32 + band * dw, warp_ops(1, band, dw), None,
+        "none: no PyTorch call gives the reference's rounded bilinear quad warp")
+    entry.update(device_ms=device_ms(lambda: K.quad_warp_rows(doc, corners, SCAN_PAGE, row0,
+                                                              band)),
+                 footprint_rows=fr, footprint_columns=fc, band=[row0, band],
+                 bytes_counted="the source box the band samples, the corners, the band's rows")
+    emit("kernel_time", card=card, kernel="quad_warp_rows", shape=list(doc.shape),
+         page=list(SCAN_PAGE), **entry)
+    return {"quad_warp_rows": entry}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an earlier commit's tree: its K4, K8, K10, K19 and K20 "
@@ -2552,7 +2809,8 @@ def main():
     emit("build", card=card, parent=args.parent, device=torch.cuda.get_device_name(0),
          torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=time.perf_counter() - t0,
-         nvcc=" ".join(_build.NVCC_FLAGS), operation_rates=op_rates)
+         nvcc=" ".join(_build.NVCC_FLAGS), operation_rates=op_rates,
+         native_pgm_loader=native.available(), native_library=native.library_path())
 
     chk = Checker()
     phase_kernels(chk, np.random.default_rng(0), dev)
@@ -2562,6 +2820,7 @@ def main():
     phase_dense_kernels(chk, np.random.default_rng(4), dev)
     phase_sharded_kernels(chk, np.random.default_rng(5), dev)
     phase_contour_template_kernels(chk, np.random.default_rng(6), dev)
+    phase_sparse_kernels(chk, np.random.default_rng(7), dev)
     batch, pre_launches = phase_main_path(chk, dev)
     faces_batch, faces_launches = phase_faces_path(chk, dev)
     orb_frames, orb_launches = phase_orb_path(chk, dev)
@@ -2570,6 +2829,7 @@ def main():
     cli_launches = phase_cli(dev)
     sharded_launches = phase_sharded_path(chk, dev, batch)
     tc_launches = phase_contour_template_path(chk, dev)
+    sparse_launches, sparse_calls = phase_sparse_path(chk, dev)
     bw_launches, times, rates = phase_bandwidth(card, dev)
     times.update(phase_timing(batch, card))
     times.update(phase_sharded_timing(batch, card))
@@ -2582,11 +2842,13 @@ def main():
     times.update(phase_dense_timing(dense_batch, dense_binary, card))
     del dense_batch, dense_binary
     times.update(phase_contour_template_timing(card, dev, parent))
+    times.update(phase_sparse_timing(card, sparse_calls))
 
     # each path ran with the counts at 0 and launches only its own kernels
     launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]
                 + scan_launches[name] + dense_launches[name] + cli_launches[name]
                 + sharded_launches[name] + tc_launches[name] + bw_launches[name]
+                + sparse_launches[name]
                 for name in KERNELS}
     emit("elapsed", seconds=time.perf_counter() - t_start)
     copy_rate = rates["copy_gbps"] * 1e9

@@ -126,8 +126,7 @@ with each variant's K9.  Device time too.
 columns a thread (``kCols``: 1, 2, 8; 2 with 4 rows), the right and lower
 neighbours of the last column and row read unchecked in every frame but the
 last (``_warp_unguarded``), a thread on kCols adjacent columns with 4-byte
-stores in place of columns 32 apart (``_warp_adjacent``), each row's v and 1
-- v computed by each thread in place of the block's shared table, the float
+stores in place of columns 32 apart (``_warp_adjacent``), the float
 tricks in place of type conversions (a byte as 2^23 + b less 2^23,
 ``BYTE_TRICK``; a coordinate's truncation by ``__fadd_rz(s, 2^23)``,
 ``TRUNC_TRICK``; both; and F2I in place of the store's trick,
@@ -1670,7 +1669,7 @@ NO_STORE_TRICK = lambda s: edit(  # noqa: E731
 # every frame but the last (and for one-row frames the one before): it lies in
 # the next frame, and its weight is 0
 def _warp_unguarded(s):
-    walk = ("walk_rows<kWide{}>(s, page, row_terms, sh, sw, dh, dw, y_first, x_first, top_x,"
+    walk = ("walk_rows<kWide{}>(s, page, row_terms, sh, sw, rows, dw, y_first, x_first, top_x,"
             " top_y,\n{}bot_x, bot_y);")
     s = edit(s, "template <bool kWide>\n__device__ __forceinline__ uint8_t warp_pixel(",
              "template <bool kWide, bool kGuard>\n__device__ __forceinline__ uint8_t warp_pixel(",
@@ -1681,8 +1680,8 @@ def _warp_unguarded(s):
              "warp_pixel<kWide>(s, sw,", "warp_pixel<kWide, kGuard>(s, sw,",
              "uint8_t* __restrict__ dst, int sh, int sw,",
              "uint8_t* __restrict__ dst, int n, int sh, int sw,",
-             "    walk_rows<kWide>(s, page, row_terms, sh, sw, dh, dw, y_first, x_first, top_x, "
-             "top_y, bot_x,\n                     bot_y);",
+             "    walk_rows<kWide>(s, page, row_terms, sh, sw, rows, dw, y_first, x_first, top_x, "
+             "top_y,\n                     bot_x, bot_y);",
              "    if (f + (sh > 1 ? 1 : 2) >= n) {\n      " + walk.format(", true", " " * 29)
              + "\n    } else {\n      " + walk.format(", false", " " * 30) + "\n    }")
     return replace_n(s, "<<<grid, block, 0, st>>>(s, c, d, sh,",
@@ -1724,8 +1723,8 @@ __device__ __forceinline__ uint8_t staged_pixel(const uint8_t* stage, int bx0, i
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corners,
-                 uint8_t* __restrict__ dst, int sh, int sw, int dh, int dw, int tiles_y,
-                 int tiles_x) {
+                 uint8_t* __restrict__ dst, int sh, int sw, int dh, int dw, int y0, int rows,
+                 int tiles_y, int tiles_x) {
   __shared__ float quad[8];
   __shared__ float2 row_terms[kThreads / 32 * kRows];
   __shared__ uint8_t stage[kStageBytes];
@@ -1736,17 +1735,17 @@ quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corner
   if (tid < 8) quad[tid] = static_cast<float>(corners[static_cast<long long>(f) * 8 + tid]);
   const float dhm1 = static_cast<float>(dh - 1);
   for (unsigned i = tid; i < span; i += blockDim.x * blockDim.y) {
-    const float v = __fdiv_rn(static_cast<float>(y_first + i), dhm1);
+    const float v = __fdiv_rn(static_cast<float>(y0 + y_first + i), dhm1);
     row_terms[i] = make_float2(v, __fsub_rn(1.0f, v));
   }
   __syncthreads();
   const uint8_t* s = src + static_cast<long long>(f) * sh * sw;
-  uint8_t* page = dst + static_cast<long long>(f) * dh * dw;
+  uint8_t* page = dst + static_cast<long long>(f) * rows * dw;
   const float dwm1 = static_cast<float>(dw - 1);
   const float swm1f = static_cast<float>(sw) - 1.0f, shm1f = static_cast<float>(sh) - 1.0f;
   const float tl_x = quad[0], tl_y = quad[1], tr_x = quad[2], tr_y = quad[3];
   const float br_x = quad[4], br_y = quad[5], bl_x = quad[6], bl_y = quad[7];
-  const unsigned y_last = min(y_first + span, static_cast<unsigned>(dh)) - 1;
+  const unsigned y_last = min(y_first + span, static_cast<unsigned>(rows)) - 1;
   const unsigned lane = threadIdx.x & 31u;
   for (unsigned tile_x = blockIdx.y; tile_x < static_cast<unsigned>(tiles_x);
        tile_x += gridDim.y) {
@@ -1755,7 +1754,7 @@ quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corner
     float lo_x = 3.0e38f, hi_x = 0.0f, lo_y = 3.0e38f, hi_y = 0.0f;
     for (int ci = 0; ci < 4; ++ci) {
       const float u = __fdiv_rn(static_cast<float>(ci & 1 ? xt1 : xt0), dwm1);
-      const float v = __fdiv_rn(static_cast<float>(ci & 2 ? y_last : y_first), dhm1);
+      const float v = __fdiv_rn(static_cast<float>(y0 + (ci & 2 ? y_last : y_first)), dhm1);
       const float omu = __fsub_rn(1.0f, u), omv = __fsub_rn(1.0f, v);
       const float cx = clamp_coord(edge(edge(tl_x, tr_x, u, omu), edge(bl_x, br_x, u, omu), v, omv),
                                    swm1f);
@@ -1792,7 +1791,7 @@ quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corner
       bot_y[j] = edge(bl_y, br_y, u, omu);
     }
     if (!staged) {
-      walk_rows<kWide>(s, page, row_terms, sh, sw, dh, dw, y_first, x_first, top_x, top_y,
+      walk_rows<kWide>(s, page, row_terms, sh, sw, rows, dw, y_first, x_first, top_x, top_y,
                        bot_x, bot_y);
       continue;
     }
@@ -1800,7 +1799,7 @@ quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corner
     for (int k = 0; k < kRows; ++k) {
       const unsigned r = threadIdx.y + k * blockDim.y;
       const unsigned y = y_first + r;
-      if (y >= static_cast<unsigned>(dh)) break;
+      if (y >= static_cast<unsigned>(rows)) break;
       const float2 t = row_terms[r];
       uint8_t* row = page + static_cast<size_t>(y) * dw + x_first;
 #pragma unroll
@@ -1822,10 +1821,6 @@ WARP_VARIANTS = {
     "cols2_rows4": chain(const("kCols", 2), const("kRows", 4)),
     "unguarded": _warp_unguarded,
     "adjacent": _warp_adjacent,
-    "row_terms_a_thread": lambda s: edit(
-        s, "    const float2 t = row_terms[r];\n",
-        "    const float tv = __fdiv_rn(static_cast<float>(y), static_cast<float>(dh - 1));\n"
-        "    const float2 t = make_float2(tv, __fsub_rn(1.0f, tv));\n"),
     "byte_trick": BYTE_TRICK,
     "trunc_trick": TRUNC_TRICK,
     "no_store_trick": NO_STORE_TRICK,

@@ -41,8 +41,8 @@ template matching and contour tracing::
 The package imports no JAX and builds nothing at import.
 """
 
-from . import (cascade, core, io, kernels, libm32, ops, parallel, pipelines,  # noqa: F401
-               profiling, structlog)
+from . import (cascade, core, io, kernels, libm32, native, ops, parallel,  # noqa: F401
+               pipelines, profiling, structlog)
 from .cascade import load_frontalface, load_opencv_xml  # noqa: F401
 from .core import (Blobs, Contour, Keypoints, LbpCascade, Matches, Point, Rect,  # noqa: F401
                    Rects, as_image, is_batched)

@@ -54,6 +54,11 @@
 // neighbours read unchecked in every frame but the last, a staged footprint,
 // word gathers).
 //
+// gs_quad_warp_rows writes a band of rows of the same pages with the same
+// kernel (each row's v is still the whole page's y / (dh - 1)): the
+// space-sharded scanner's shard warps its own band (grayskull_tpu/ops/warp.py:68
+// _warp_rows is the JAX counterpart).
+//
 // Each entry returns cudaGetLastError().
 
 #include <climits>
@@ -136,7 +141,7 @@ __device__ __forceinline__ uint8_t warp_pixel(const uint8_t* __restrict__ s, int
 // A thread's columns x_first + 32 j (j < kCols) in the rows of its tile.
 template <bool kWide>
 __device__ __forceinline__ void walk_rows(const uint8_t* __restrict__ s, uint8_t* __restrict__ page,
-                                          const float2* row_terms, int sh, int sw, int dh,
+                                          const float2* row_terms, int sh, int sw, int rows,
                                           int dw, unsigned y_first, unsigned x_first,
                                           const float (&top_x)[kCols],
                                           const float (&top_y)[kCols],
@@ -147,7 +152,7 @@ __device__ __forceinline__ void walk_rows(const uint8_t* __restrict__ s, uint8_t
   for (int k = 0; k < kRows; ++k) {
     const unsigned r = threadIdx.y + k * blockDim.y;
     const unsigned y = y_first + r;
-    if (y >= static_cast<unsigned>(dh)) break;
+    if (y >= static_cast<unsigned>(rows)) break;
     const float2 t = row_terms[r];
     uint8_t* row = page + static_cast<size_t>(y) * dw + x_first;
 #pragma unroll
@@ -161,12 +166,13 @@ __device__ __forceinline__ void walk_rows(const uint8_t* __restrict__ s, uint8_t
 
 // grid (n * tiles_y, min(tiles_x, 65535)), block (gx, ry): blockIdx.x is a
 // frame's row tile of ry * kRows rows, blockIdx.y walks the column tiles of gx
-// * kCols columns.
+// * kCols columns.  dst holds page rows y0 .. y0 + rows - 1 of each frame's
+// dh x dw page (y0 = 0, rows = dh: the whole page); a row's v is the page's.
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corners,
-                 uint8_t* __restrict__ dst, int sh, int sw, int dh, int dw, int tiles_y,
-                 int tiles_x) {
+                 uint8_t* __restrict__ dst, int sh, int sw, int dh, int dw, int y0, int rows,
+                 int tiles_y, int tiles_x) {
   __shared__ float quad[8];
   __shared__ float2 row_terms[kThreads / 32 * kRows];
   const int f = blockIdx.x / tiles_y;  // the block's one division
@@ -176,13 +182,13 @@ quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corner
   if (tid < 8) quad[tid] = static_cast<float>(corners[static_cast<long long>(f) * 8 + tid]);
   const float dhm1 = static_cast<float>(dh - 1);
   for (unsigned i = tid; i < span; i += blockDim.x * blockDim.y) {
-    const float v = __fdiv_rn(static_cast<float>(y_first + i), dhm1);
+    const float v = __fdiv_rn(static_cast<float>(y0 + y_first + i), dhm1);
     row_terms[i] = make_float2(v, __fsub_rn(1.0f, v));
   }
   __syncthreads();
 
   const uint8_t* s = src + static_cast<long long>(f) * sh * sw;
-  uint8_t* page = dst + static_cast<long long>(f) * dh * dw;
+  uint8_t* page = dst + static_cast<long long>(f) * rows * dw;
   const float dwm1 = static_cast<float>(dw - 1);
   // (x, y) rows: TL, TR, BR, BL
   const float tl_x = quad[0], tl_y = quad[1], tr_x = quad[2], tr_y = quad[3];
@@ -202,24 +208,21 @@ quad_warp_kernel(const uint8_t* __restrict__ src, const int* __restrict__ corner
       bot_x[j] = edge(bl_x, br_x, u, omu);
       bot_y[j] = edge(bl_y, br_y, u, omu);
     }
-    walk_rows<kWide>(s, page, row_terms, sh, sw, dh, dw, y_first, x_first, top_x, top_y, bot_x,
-                     bot_y);
+    walk_rows<kWide>(s, page, row_terms, sh, sw, rows, dw, y_first, x_first, top_x, top_y,
+                     bot_x, bot_y);
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// src: (n, sh, sw) uint8; corners: (n, 4, 2) int32; dst: (n, dh, dw) uint8.
-// Requires n, sh, sw, dh, dw >= 1.
-int gs_quad_warp(const void* src, const void* corners, void* dst, int n, int sh, int sw, int dh,
-                 int dw, void* stream) {
+// src: (n, sh, sw) uint8; corners: (n, 4, 2) int32; dst: (n, rows, dw) uint8,
+// page rows y0 .. y0 + rows - 1 of a dh x dw page.  Requires n, sh, sw, dh, dw,
+// rows >= 1 and 0 <= y0 <= dh - rows.
+int launch(const void* src, const void* corners, void* dst, int n, int sh, int sw, int dh, int dw,
+           int y0, int rows, void* stream) {
   const long long groups = (static_cast<long long>(dw) + kCols - 1) / kCols;  // threads a row
   const int gx = static_cast<int>(groups < kThreads ? (groups + 31) / 32 * 32 : kThreads);
   const int ry = kThreads / gx;
   const long long span = static_cast<long long>(ry) * kRows;
-  const long long tiles_y = (dh + span - 1) / span;
+  const long long tiles_y = (rows + span - 1) / span;
   const long long tiles_x = (groups + gx - 1) / gx;
   const long long blocks = n * tiles_y;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -231,15 +234,33 @@ int gs_quad_warp(const void* src, const void* corners, void* dst, int n, int sh,
   const auto* c = static_cast<const int*>(corners);
   auto* d = static_cast<uint8_t*>(dst);
   if (sw <= kExactLimit && sh <= kExactLimit && static_cast<long long>(sh) * sw <= INT_MAX) {
-    quad_warp_kernel<false><<<grid, block, 0, st>>>(s, c, d, sh, sw, dh, dw,
+    quad_warp_kernel<false><<<grid, block, 0, st>>>(s, c, d, sh, sw, dh, dw, y0, rows,
                                                     static_cast<int>(tiles_y),
                                                     static_cast<int>(tiles_x));
   } else {
-    quad_warp_kernel<true><<<grid, block, 0, st>>>(s, c, d, sh, sw, dh, dw,
+    quad_warp_kernel<true><<<grid, block, 0, st>>>(s, c, d, sh, sw, dh, dw, y0, rows,
                                                    static_cast<int>(tiles_y),
                                                    static_cast<int>(tiles_x));
   }
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// src: (n, sh, sw) uint8; corners: (n, 4, 2) int32; dst: (n, dh, dw) uint8.
+// Requires n, sh, sw, dh, dw >= 1.
+int gs_quad_warp(const void* src, const void* corners, void* dst, int n, int sh, int sw, int dh,
+                 int dw, void* stream) {
+  return launch(src, corners, dst, n, sh, sw, dh, dw, 0, dh, stream);
+}
+
+// The rows y0 .. y0 + rows - 1 of gs_quad_warp's pages, into dst: (n, rows, dw)
+// uint8 (a band of the page: the space-sharded scanner's shard).
+int gs_quad_warp_rows(const void* src, const void* corners, void* dst, int n, int sh, int sw,
+                      int dh, int dw, int y0, int rows, void* stream) {
+  return launch(src, corners, dst, n, sh, sw, dh, dw, y0, rows, stream);
 }
 
 }  // extern "C"

@@ -86,9 +86,15 @@ def write_pgm(img, path: str) -> int:
 def read_pgm_batch(paths, pad_to=None) -> np.ndarray:
     """Read several same-sized PGMs into an (N, H, W) uint8 batch.
 
-    ``pad_to=(H, W)`` zero-pads each frame bottom/right (or crops it) to a common
-    shape.
+    Uses the threaded C loader (:mod:`grayskull_tpu_torch.native`, ``csrc/gsio.c``)
+    when it is available, else this module's codec, with the same results and
+    exception types.  ``pad_to=(H, W)`` zero-pads each frame bottom/right (or
+    crops it) to a common shape.
     """
+    from . import native
+
+    if native.available():
+        return native.read_pgm_batch(paths, pad_to=pad_to)
     frames = []
     shape = None
     for p in paths:

@@ -15,6 +15,7 @@
   K8 ``orb_brief`` (rBRIEF words, a ballot per word)
 * :mod:`.ccl` — K9 ``ccl`` (4-connected component minima by union-find)
 * :mod:`.warp` — K10 ``quad_warp`` (the bilinear quad warp, a thread per page pixel)
+  and ``quad_warp_rows`` (a band of a page's rows, the same kernel)
 * :mod:`.resize` — K14 ``resize`` (the bilinear resize, a thread per output pixel)
 * :mod:`.bandwidth` — K17 ``copy`` and K18 ``triad`` (the device-memory
   bandwidth probe, 16 bytes a thread)
@@ -58,7 +59,7 @@ from .preproc import (adaptive, adaptive_plain, blur_hist, blur_hist_plain,  # n
                       threshold_sobel_window_plain)
 from .resize import resize, resize_plain  # noqa: F401
 from .template import match_template, match_template_plain  # noqa: F401
-from .warp import quad_warp, quad_warp_plain  # noqa: F401
+from .warp import quad_warp, quad_warp_plain, quad_warp_rows, quad_warp_rows_plain  # noqa: F401
 
 __all__ = [
     "adaptive",
@@ -97,6 +98,8 @@ __all__ = [
     "otsu_plain",
     "quad_warp",
     "quad_warp_plain",
+    "quad_warp_rows",
+    "quad_warp_rows_plain",
     "reset_launch_counts",
     "resize",
     "resize_plain",

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "gs_orb_brief": (*(_PTR,) * 7, *(_INT,) * 4, _PTR),
     "gs_ccl": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "gs_quad_warp": (_PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
+    "gs_quad_warp_rows": (_PTR, _PTR, _PTR, *(_INT,) * 7, _PTR),
     "gs_adaptive": (_PTR, _PTR, *(_INT,) * 5, _PTR),
     "gs_morph": (_PTR, _PTR, *(_INT,) * 4, _PTR),
     "gs_filter3": (_PTR, _PTR, *(_INT,) * 12, _UINT, _PTR),

@@ -64,6 +64,53 @@ def label_components(img, force_reference: bool = False) -> torch.Tensor:
     return _unbatch(out, single)
 
 
+class _Segments:
+    """Reductions of per-pixel values by (frame, label) over an (N, P) label map
+    ``seg`` of labels ``0 .. nseg - 1`` for frames ``w`` pixels wide.
+
+    A label's updates spread over up to 256 slots by pixel index and are
+    reduced after: the atomics of a label that most pixels share (the
+    background, a page) would otherwise serialise.  The extremes leave label 0
+    (background and dropped pixels) out.
+    """
+
+    def __init__(self, seg: torch.Tensor, nseg: int, w: int):
+        n, npix = seg.shape
+        dev = seg.device
+        self.n, self.nseg = n, nseg
+        self.lanes = max(1, min(_STAT_LANES, _STAT_SLOTS // (n * nseg)))
+        pix = torch.arange(npix, device=dev, dtype=torch.int64)
+        slot = seg.to(torch.int64) + torch.arange(n, device=dev).view(n, 1) * nseg
+        self.keys = (slot * self.lanes + pix % self.lanes).view(-1)
+        self.inside = (seg > 0).view(-1)
+        self.xs, self.ys = (pix % w).repeat(n), (pix // w).repeat(n)
+
+    def total(self, values: torch.Tensor) -> torch.Tensor:
+        """(N, nseg) int64 sums of the int64 ``values`` (one a pixel, flattened)."""
+        out = torch.zeros(self.n * self.nseg * self.lanes, dtype=torch.int64,
+                          device=values.device)
+        return out.scatter_add_(0, self.keys, values).view(self.n, self.nseg, self.lanes).sum(2)
+
+    def extreme(self, values: torch.Tensor, reduce: str, empty: int) -> torch.Tensor:
+        """(N, nseg) int64 minima (``reduce="amin"``) or maxima (``"amax"``), ``empty``
+        where a label has no pixel."""
+        vals = torch.where(self.inside, values, empty)
+        out = torch.full((self.n * self.nseg * self.lanes,), empty, dtype=torch.int64,
+                         device=values.device)
+        out = out.scatter_reduce_(0, self.keys, vals, reduce).view(self.n, self.nseg, self.lanes)
+        return out.amin(2) if reduce == "amin" else out.amax(2)
+
+    def stats(self, row0: int = 0):
+        """(area, sum_x, sum_y, min_x, min_y, max_x, max_y), each (N, nseg) int64,
+        rows counted from ``row0``; the extremes of an empty label are 2^62 and -1."""
+        ones = self.inside.to(torch.int64)
+        ys = self.ys + row0
+        big = 2**62
+        return (self.total(ones), self.total(self.xs * ones), self.total(ys * ones),
+                self.extreme(self.xs, "amin", big), self.extreme(ys, "amin", big),
+                self.extreme(self.xs, "amax", -1), self.extreme(ys, "amax", -1))
+
+
 def blobs(img, max_blobs: int, force_reference: bool = False):
     """Connected components with stats — ``gs_blobs`` (grayskull.h:330-402).
 
@@ -100,34 +147,9 @@ def blobs(img, max_blobs: int, force_reference: bool = False):
                         0)
     seg = torch.where(label <= cap, label, 0)
 
-    # per-(frame, label) statistics; label 0 gathers background and dropped
-    # pixels.  A label's updates spread over ``lanes`` slots by pixel index,
-    # reduced after: the atomics of a label that most pixels share (the
-    # background, a page) would otherwise serialise.  nseg >= 1, so lanes >= 1.
+    # per-(frame, label) statistics; label 0 gathers background and dropped pixels
     nseg = cap + 1
-    lanes = max(1, min(_STAT_LANES, _STAT_SLOTS // (n * nseg)))
-    pix = torch.arange(h * w, device=dev, dtype=torch.int64)
-    slot = seg.to(torch.int64) + torch.arange(n, device=dev).view(n, 1) * nseg
-    keys = (slot * lanes + pix % lanes).view(-1)
-    inside = (seg > 0).view(-1)
-    xs, ys = (pix % w).repeat(n), (pix // w).repeat(n)
-    ones = inside.to(torch.int64)
-
-    def total(values):
-        return torch.zeros(n * nseg * lanes, dtype=torch.int64, device=dev).scatter_add_(
-            0, keys, values).view(n, nseg, lanes).sum(2)
-
-    def extreme(values, reduce, empty):
-        vals = torch.where(inside, values, empty)
-        out = torch.full((n * nseg * lanes,), empty, dtype=torch.int64, device=dev)
-        out = out.scatter_reduce_(0, keys, vals, reduce).view(n, nseg, lanes)
-        return out.amin(2) if reduce == "amin" else out.amax(2)
-
-    area = total(ones)
-    sum_x, sum_y = total(xs * ones), total(ys * ones)
-    big = h * w
-    min_x, min_y = extreme(xs, "amin", big), extreme(ys, "amin", big)
-    max_x, max_y = extreme(xs, "amax", -1), extreme(ys, "amax", -1)
+    area, sum_x, sum_y, min_x, min_y, max_x, max_y = _Segments(seg, nseg, w).stats()
 
     # a label survives compaction iff it has pixels; compact in ascending label order
     is_rep = area > 0

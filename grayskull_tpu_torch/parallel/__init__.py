@@ -9,8 +9,10 @@ four times runs the real exchange on one card).  Two axes, as in the JAX package
 * **space** — the H axis of frames sharded across devices, with halo rows
   exchanged for each stencil's radius and the histograms summed for Otsu.
 
-Not ported yet: ``grayskull_tpu/parallel/sparse.py`` (sharded CCL, blobs, ORB,
-LBP, faces and the spatial scanner).
+:mod:`.sharded` holds the dense paths (preprocess, the integral, template
+matching, the data-parallel scanner); :mod:`.sparse` the sparse ones (CCL,
+blob statistics, the spatial scanner, ORB, matching, LBP and faces).  The
+outputs land on the mesh's first device.
 """
 
 from .halo import bottom_halo, exchange_halo  # noqa: F401
@@ -22,15 +24,31 @@ from .sharded import (  # noqa: F401
     preprocess_spatial_shardmap,
     scan_sharded,
 )
+from .sparse import (  # noqa: F401
+    blobs_sharded,
+    detect_faces_sharded,
+    label_components_sharded,
+    lbp_detect_sharded,
+    match_orb_sharded,
+    orb_extract_spatial,
+    scan_spatial_shardmap,
+)
 
 __all__ = [
-    "Mesh",
+    "make_mesh",
     "bottom_halo",
     "exchange_halo",
     "integral_sharded",
-    "make_mesh",
     "match_template_sharded",
+    "scan_sharded",
     "preprocess_sharded",
     "preprocess_spatial_shardmap",
-    "scan_sharded",
+    "blobs_sharded",
+    "detect_faces_sharded",
+    "label_components_sharded",
+    "match_orb_sharded",
+    "orb_extract_spatial",
+    "scan_spatial_shardmap",
+    "lbp_detect_sharded",
+    "Mesh",
 ]

@@ -27,7 +27,8 @@ from grayskull_tpu_torch.ops.lbp import _grid_plan
 SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
 NO_DENSE = {"adaptive": 0, "morph": 0, "filter3": 0, "resize": 0}  # K11-K14 not launched
 NO_SHARDED = {"blur_hist_window": 0, "threshold_sobel_window": 0, "copy": 0,  # K15-K18 neither
-              "triad": 0, "match_template": 0, "contour": 0}  # nor K19, K20
+              "triad": 0, "match_template": 0, "contour": 0,  # nor K19, K20
+              "quad_warp_rows": 0}  # nor K10's rows entry
 COPY_SIZES = [1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 12295, 16383, 16384,
               16385, 2**20 + 3, 2**26]
 COPY_OFFSETS = (0, 1, 4, 8)  # bytes the operands start past a 16-byte boundary
@@ -700,6 +701,24 @@ def test_quad_warp_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_quad_warp_rows_matches_plain_on_card(cuda_device):
+    """K10's rows entry: bands at the top, the middle and the bottom, one-row
+    bands, pages of one row or one column, a band of a page's last tile."""
+    src = _frames((2, 300, 260), 58, cuda_device)
+    c = torch.tensor([[[20, 15], [240, 30], [230, 280], [10, 290]],
+                      [[200, 10], [10, 20], [30, 250], [250, 270]]], dtype=torch.int32,
+                     device=cuda_device)
+    for size, bands in (((1000, 800), ((0, 250), (250, 250), (750, 250), (999, 1), (0, 1))),
+                        ((347, 200), ((0, 347), (100, 247), (346, 1))), ((1, 10), ((0, 1),)),
+                        ((10, 1), ((0, 10), (3, 4)))):
+        whole = K.quad_warp(src, c, size)
+        for row0, rows in bands:
+            got = K.quad_warp_rows(src, c, size, row0, rows)
+            assert got.is_cuda and torch.equal(got, whole[:, row0:row0 + rows]), (size, row0)
+            assert torch.equal(got, K.quad_warp_rows_plain(src, c, size, row0, rows))
+
+
+@pytest.mark.cuda
 def test_quad_warp_tiles_and_tails_on_card(cuda_device):
     """K10's tiles and stores: page widths 1 .. 17 and 4k +- 1 (rows that start
     on every byte offset mod 16, tails of a warp's 128 columns), sources of one
@@ -1059,6 +1078,115 @@ def test_match_template_sharded_on_card(cuda_device):
             got, counts = _no_sync(gt.parallel.match_template_sharded, frames, tmpl, mesh)
             assert counts == {"match_template": shape[0] * shape[1]}  # a shard each
             assert torch.equal(got, gt.match_template(frames, tmpl))
+
+
+@pytest.mark.cuda
+def test_sparse_sharded_on_card(cuda_device):
+    """The sparse sharded entry points on a (1, 4) mesh of one card, each equal
+    to its single-device entry point and launching its kernels a shard."""
+    par = gt.parallel
+    mesh = par.make_mesh((1, 4), devices=[cuda_device] * 4)
+    doc = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/document.pgm").copy()
+    frame = torch.from_numpy(doc).to(cuda_device)
+    binary = gt.preprocess_binarize(frame)
+    K.reset_launch_counts()
+    labels = par.label_components_sharded(binary, mesh)
+    assert K.launch_counts()["ccl"] == 4
+    assert torch.equal(labels, gt.label_components(binary))
+    got = par.blobs_sharded(binary, mesh, 1000)
+    for a, b in zip(_blob_leaves(got), _blob_leaves(gt.blobs(binary, 1000)[0])):
+        assert torch.equal(a, b)
+    (page, corners), counts = _no_sync_but_one(par.scan_spatial_shardmap, frame, mesh)
+    assert counts == {"blur_hist_window": 4, "otsu": 1, "ccl": 4, "quad_warp_rows": 4}
+    ref_page, ref_corners = gt.scan(frame)
+    assert torch.equal(page, ref_page) and torch.equal(corners, ref_corners)
+    aruco = torch.from_numpy(gt.io.read_pgm(__file__.rsplit("/", 1)[0]
+                                            + "/golden/testdata/aruco.pgm").copy()).to(cuda_device)
+    ref = gt.orb_extract(aruco, 500, 20)  # first: it uploads the BRIEF pattern (a wait)
+    kps, counts = _no_sync(par.orb_extract_spatial, aruco, mesh, 500, 20)
+    assert counts == {"fast": 4, "orb_moments": 4, "orb_brief": 4}
+    for a, b in zip(kps, ref):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+    ref = gt.match_orb(kps, kps, 300, 60)
+    matches, _ = _no_sync(par.match_orb_sharded, kps, kps, mesh, 300, 60)
+    for a, b in zip(matches, ref):
+        assert torch.equal(a, b)
+    faces = torch.from_numpy(np.stack([doc[:480, :640]] * 2)).to(cuda_device)
+    ref = gt.detect_faces(faces)  # first: it uploads the cascade tables
+    rects, counts = _no_sync(par.detect_faces_sharded, faces, par.make_mesh(
+        (2, 4), devices=[cuda_device] * 8))
+    assert counts["integral"] == 8
+    for a, b in zip(rects, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sparse_sharded_across_cards(cuda_device):
+    """With two cards or more: each sparse sharded call on a mesh of distinct
+    cards equals the same call on a mesh that names the first card as often
+    (the halo rows, tables and hit masks then move between cards), with its
+    outputs on the mesh's first card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    k = 4 if n >= 4 else 2
+    par = gt.parallel
+    cards = [torch.device("cuda", i) for i in range(k)]
+    across, one = (par.make_mesh((1, k), devices=d) for d in (cards, [cards[0]] * k))
+    across2, one2 = (par.make_mesh((2, k // 2), devices=d) for d in (cards, [cards[0]] * k))
+    here = __file__.rsplit("/", 1)[0] + "/golden/testdata/"
+    doc = torch.from_numpy(gt.io.read_pgm(here + "document.pgm").copy()).to(cards[0])
+    aruco = torch.from_numpy(gt.io.read_pgm(here + "aruco.pgm").copy()).to(cards[0])
+    binary = gt.preprocess_binarize(doc)
+    kps = gt.orb_extract(aruco, 500, 20)
+    faces = torch.stack([aruco, aruco.roll(9, 1)])
+    calls = [(par.label_components_sharded, (binary,), across, one),
+             (par.blobs_sharded, (binary, across, 1000), None, one),
+             (par.scan_spatial_shardmap, (doc,), across, one),
+             (par.orb_extract_spatial, (aruco, across, 500, 20), None, one),
+             (par.match_orb_sharded, (kps, kps, across, 300, 60), None, one),
+             (par.detect_faces_sharded, (faces,), across2, one2)]
+    for fn, args, mesh_a, mesh_b in calls:
+        if mesh_a is not None:
+            got, want = fn(args[0], mesh_a, *args[1:]), fn(args[0], mesh_b, *args[1:])
+        else:
+            i = next(j for j, v in enumerate(args) if v is across)
+            got = fn(*args)
+            want = fn(*args[:i], mesh_b, *args[i + 1:])
+        for a, b in zip(_blob_leaves(got), _blob_leaves(want)):
+            assert a.device == cards[0] and torch.equal(a, b), fn.__name__
+
+
+def _blob_leaves(table):
+    """A table's tensors (a Blobs' box and centroid fields flattened; a
+    tensor is its own one leaf)."""
+    if isinstance(table, torch.Tensor):
+        return [table]
+    out = []
+    for v in table:
+        out.extend(v if isinstance(v, tuple) else [v])
+    return out
+
+
+def _no_sync_but_one(fn, *args):
+    """``fn(*args)`` with the counts at 0; fails unless the host waited exactly
+    once (sync debug mode "warn", each wait one warning)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    waits = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(waits) == 1, [str(w.message) for w in caught]
+    return out, {k: v for k, v in K.launch_counts().items() if v}
 
 
 def _k19_widths():

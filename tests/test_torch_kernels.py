@@ -206,6 +206,7 @@ def test_plain_runs_on_cpu_without_counting():
     K.orb_brief(imgs, xy, xy, torch.zeros((1, 3)), torch.ones((1, 3)))
     K.ccl(imgs)
     K.quad_warp(imgs, torch.zeros((1, 4, 2), dtype=torch.int32), (3, 4))
+    K.quad_warp_rows(imgs, torch.zeros((1, 4, 2), dtype=torch.int32), (3, 4), 1, 2)
     K.adaptive(imgs, 2, 5)
     K.morph(imgs, "erode")
     K.filter3(imgs, ((0, -1, 0), (-1, 5, -1), (0, -1, 0)), 1)
@@ -220,7 +221,8 @@ def test_plain_runs_on_cpu_without_counting():
     assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale",
                            "fast", "orb_moments", "orb_brief", "ccl", "quad_warp", "adaptive",
                            "morph", "filter3", "resize", "blur_hist_window",
-                           "threshold_sobel_window", "copy", "triad", "match_template", "contour"}
+                           "threshold_sobel_window", "copy", "triad", "match_template", "contour",
+                           "quad_warp_rows"}
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
@@ -634,7 +636,7 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
                                        "gs_quad_warp", "gs_adaptive", "gs_morph", "gs_filter3",
                                        "gs_resize", "gs_blur_hist_window",
                                        "gs_threshold_sobel_window", "gs_copy", "gs_triad",
-                                       "gs_match_template", "gs_contour"}
+                                       "gs_match_template", "gs_contour", "gs_quad_warp_rows"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

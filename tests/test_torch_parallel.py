@@ -277,3 +277,5 @@ def test_package_and_chip_smoke_import_no_jax():
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     bad = [f for f in files if pattern.search(open(f, encoding="utf-8").read())]
     assert len(files) > 30 and not bad, bad
+    for module in (("parallel", "sparse.py"), ("native.py",)):
+        assert os.path.join(REPO, "grayskull_tpu_torch", *module) in files, module
