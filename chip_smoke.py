@@ -66,7 +66,24 @@ counts set to 0 just before it and read just after:
   and ORB (``exact_host`` trig) against the plain path on a CPU mesh; K10's
   rows entry (``quad_warp_rows``) against its plain version on bands at the
   top, the middle and the bottom, one-row bands and pages of one row or
-  column.
+  column;
+* the ``freestanding`` trig mode (``libm32.use_freestanding``, the reference's
+  ``GS_NO_STDLIB`` polynomials): K21 against its plain versions on 1 M (y, x)
+  pairs and 1 M sine inputs, ORB's range with and without the cosine's offset,
+  the loop-end inputs (NaN) and the largest inside the bound; then the ORB
+  frames' ``orb_extract``, ``track`` on aruco and ``orb_extract_spatial`` over
+  a (1, 4) mesh of ``cuda:0`` in that mode, each with its K21 launches and
+  host waits counted (none), against the plain path on the card (the plain
+  trig) and on the CPU, bit for bit;
+* ``debug``: ``dump`` of a card batch and a card float frame against the
+  CPU's files, ``draw_rects`` and ``draw_crosses`` of card ``detect_faces``
+  and ``orb_extract`` tables against the CPU tables', ``nan_guard`` on the card;
+* the demos: ``examples/stream_demo_torch.py``'s ``main`` on 32 synthetic
+  frames of 480x640 through ``blur:1,threshold:otsu,blobs,keypoints,faces,
+  contours`` (its last two frames and overlay against the same run on the
+  CPU), and ``examples/live_demo_torch.py``'s ``Demo`` on the card behind a
+  local server at 240x320 (every endpoint, ``capture=1`` and the 400s, each
+  JSON body against a CPU ``Demo``'s).
 
 Then it times the paths with CUDA events, profiles preprocess, detect_faces,
 orb_extract, track, the scanner, config #2, the resize, the sharded
@@ -85,6 +102,10 @@ side by side) times one dependent shared-memory load
 (``SHARED_LOAD_LATENCY_CYCLES``, which ``chip_sweep.py --source contour``
 measures).  K19's is its correlation's byte products at the int8 tensor rate,
 and its design's own ceiling the products its tensor-core tiles issue.
+K21 is timed at ``orb_extract``'s call and on the 1 M sweep, beside
+``torch.atan2`` (a yardstick, not the same function); its operations are the
+FP32-pipe and SFU instructions of its kernels' SASS (``cuobjdump -sass``, every
+instruction once) and two a range-reduction step the data takes.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
@@ -106,6 +127,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -198,6 +220,9 @@ KERNELS = {
                 "replaces": "grayskull_tpu/ops/contour.py:36"},
     "quad_warp_rows": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/warp.cu",
                        "replaces": "grayskull_tpu/ops/warp.py:68"},
+    "freestanding": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/freestanding.cu",
+                     "replaces": "grayskull_tpu/libm32.py:110",
+                     "also_replaces": "grayskull_tpu/libm32.py:126"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
@@ -2791,6 +2816,438 @@ def phase_sparse_timing(card, inputs):
     return {"quad_warp_rows": entry}
 
 
+# --- the freestanding trig (K21), debug.py and the two demos ----------------------
+
+ORB_MOMENT = 255 * 709 * 15  # |m01|, |m10| < 255 * (disc pixels) * radius
+FS_SWEEP = 1 << 20  # K21's sweep: (y, x) pairs and sine inputs
+FS_COS_OFFSET = 1.57079  # the reference's cosine is gs_sin(angle + 1.57079f)
+# the loop-end cases (NaN), then the largest input below the bound (the first
+# loop's 166,886 steps) and -(2^18 + 1/4) (the second loop's 41,722)
+FS_LOOP_END = (np.inf, -np.inf, np.nan, 2.0**27, -(2.0**27), 2.0**20, -(2.0**20), 3.4e38)
+FS_INSIDE = (float(np.nextafter(np.float32(2.0**20), np.float32(0))), -(2.0**18 + 0.25))
+FS_OWNER = {"angle": "freestanding", "descriptor": "orb_brief"}
+# SASS opcodes that issue on the FP32 pipe, and the SFU's (at the conversion rate)
+FP32_PIPE_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET")
+SFU_OPS = ("MUFU",)
+STREAM_SPEC = "blur:1,threshold:otsu,blobs,keypoints,faces,contours"
+STREAM_FRAMES, STREAM_SIZE = 32, "480x640"
+LIVE_FRAMES, LIVE_H, LIVE_W = 8, 240, 320
+
+
+def fs_atan2_inputs(rng, n=FS_SWEEP):
+    """(y, x) float32 pairs: ORB's integer moments, +-1e6 uniforms, and a
+    moment against +-0.0 on each axis, the four signed-zero pairs among them."""
+    third = n // 3
+    rest = n - 2 * third
+    half = rest // 2
+    moments = rng.integers(-ORB_MOMENT, ORB_MOMENT, (2, third)).astype(np.float64)
+    uniform = rng.uniform(-1e6, 1e6, (2, third))
+    axes = np.zeros((2, rest))
+    axes[0, :half] = rng.integers(-ORB_MOMENT, ORB_MOMENT, half)  # (y, +-0.0)
+    axes[1, half:] = rng.integers(-ORB_MOMENT, ORB_MOMENT, rest - half)  # (+-0.0, x)
+    axes[0, :4], axes[1, :4] = 0.0, 0.0
+    signs = np.where(np.arange(rest) % 2 == 0, 1.0, -1.0)
+    axes[1, :half] *= signs[:half]  # +0.0 and -0.0 in turns
+    axes[0, half:] *= signs[half:]
+    axes[:, :4] *= np.array([[1.0, -1.0, 1.0, -1.0], [1.0, 1.0, -1.0, -1.0]])
+    yx = np.concatenate([moments, uniform, axes], axis=1).astype(np.float32)
+    return torch.from_numpy(yx[0].copy()), torch.from_numpy(yx[1].copy())
+
+
+def fs_sin_inputs(rng, n=FS_SWEEP):
+    """float32 sine inputs: +-30 (both reduction loops, up to 5 steps) and ORB's
+    angles, [-pi, pi] (taken with and without the cosine's offset)."""
+    wide = torch.from_numpy(rng.uniform(-30.0, 30.0, n).astype(np.float32))
+    orb = torch.from_numpy(rng.uniform(-np.pi, np.pi, n // 4).astype(np.float32))
+    return wide, orb
+
+
+def phase_freestanding_kernels(chk, rng, dev):
+    """K21 against its plain versions, bit for bit: 1 M (y, x) pairs and 1 M
+    sine inputs on the card; the loop-end cases and the largest inputs inside
+    the bound against the plain version on the CPU (its loops test on the host)."""
+    F = K.freestanding
+    y, x = (t.to(dev) for t in fs_atan2_inputs(rng))
+    chk.same("freestanding", F.fs_atan2(y, x).view(torch.int32),
+             F.fs_atan2_plain(y, x).view(torch.int32), f"atan2 sweep of {y.numel()}")
+    wide, orb = (t.to(dev) for t in fs_sin_inputs(rng))
+    for name, a, offset in (("sin +-30", wide, None), ("sin ORB range", orb, None),
+                            ("cos ORB range", orb, FS_COS_OFFSET),
+                            ("cos +-30", wide, FS_COS_OFFSET)):
+        chk.same("freestanding", F.fs_sin(a, offset).view(torch.int32),
+                 F.fs_sin_plain(a, offset).view(torch.int32), name)
+    ends = torch.tensor(FS_LOOP_END + FS_INSIDE, dtype=torch.float32)
+    got = F.fs_sin(ends.to(dev)).cpu()
+    chk.same("freestanding", got.view(torch.int32), F.fs_sin_plain(ends).view(torch.int32),
+             "loop ends and the bound")
+    if not torch.isnan(got[:len(FS_LOOP_END)]).all() or torch.isnan(got[len(FS_LOOP_END):]).any():
+        raise AssertionError(f"K21: the sine past and inside the bound gave {got.tolist()}")
+    ends = ends[[i for i, v in enumerate(FS_LOOP_END) if abs(v) != 2.0**20]]  # stay NaN
+    chk.same("freestanding", F.fs_sin(ends.to(dev), FS_COS_OFFSET).cpu().view(torch.int32),
+             F.fs_sin_plain(ends, FS_COS_OFFSET).view(torch.int32), "loop ends, cosine")
+    specials = torch.tensor([[np.nan, 1.0, np.inf, 0.0, -0.0, 5.0, -5.0, 0.0],
+                             [1.0, np.nan, np.inf, -0.0, 0.0, -0.0, 0.0, 0.0]],
+                            dtype=torch.float32)
+    chk.same("freestanding", F.fs_atan2(specials[0].to(dev), specials[1].to(dev)).cpu()
+             .view(torch.int32), F.fs_atan2_plain(specials[0], specials[1]).view(torch.int32),
+             "atan2 NaN, inf and signed zeros")
+    torch.cuda.synchronize()
+    emit("freestanding_kernels_vs_plain", ok=True, atan2_pairs=y.numel(),
+         sin_inputs=2 * (wide.numel() + orb.numel()), loop_end_cases=list(map(str, FS_LOOP_END)),
+         inside_bound=list(FS_INSIDE),
+         max_abs_err=chk.max_err["freestanding"], checks=chk.checks["freestanding"])
+
+
+def _same_fs_tables(chk, got, ref, what):
+    for name, a, b in zip(got._fields, _table_bits(got), _table_bits(ref)):
+        chk.same(FS_OWNER.get(name, "fast"), a, b, f"{what} {name}")
+
+
+def phase_freestanding_path(chk, dev, orb_frames):
+    """The ORB entry points in the freestanding mode, K21 on the card: each
+    call with the counts at 0 and its host waits counted (none), its tables
+    against the plain path on the card (the plain trig, not K21) and on the CPU."""
+    batch, tmpl, scene, _ = orb_frames
+    mesh = card_mesh(SPARSE_MESH, dev)
+    cpu_mesh = gt.parallel.make_mesh(SPARSE_MESH, devices=["cpu"] * int(np.prod(SPARSE_MESH)))
+    spatial = gt.parallel.orb_extract_spatial
+    calls = [  # (name, card call, card plain path, CPU call)
+        ("orb_extract", (gt.orb_extract, batch, ORB_CAP, ORB_THR),
+         (lambda: gt.orb_extract(batch, ORB_CAP, ORB_THR, force_reference=True)),
+         (lambda: gt.orb_extract(batch.cpu(), ORB_CAP, ORB_THR))),
+        ("track", (gt.track, tmpl, scene, TRACK_KPS),
+         (lambda: gt.track(tmpl, scene, TRACK_KPS, force_reference=True)),
+         (lambda: gt.track(tmpl.cpu(), scene.cpu(), TRACK_KPS))),
+        ("orb_extract_spatial", (spatial, scene, mesh, TRACK_KPS, ORB_THR),
+         (lambda: spatial(scene, mesh, TRACK_KPS, ORB_THR, kernels=False)),
+         (lambda: spatial(scene.cpu(), cpu_mesh, TRACK_KPS, ORB_THR))),
+    ]
+    launches = {name: 0 for name in KERNELS}
+    report = {}
+    libm32.use_freestanding(True)
+    try:
+        for name, (fn, *args), plain, on_cpu in calls:
+            fn(*args)  # any first-call upload happens outside the counted call
+            out, counts, waits = _counted(fn, *args)
+            missing = [k for k in ("freestanding", *ORB_KERNELS) if counts[k] < 1]
+            if missing or waits:
+                raise AssertionError(f"freestanding {name}: launches {counts}, {waits} host waits")
+            tables, refs, cpus = ((t if name == "track" else (t,))
+                                  for t in (out, plain(), on_cpu()))
+            for got, ref, cpu in zip(tables, refs, cpus):
+                _same_fs_tables(chk, got, ref, f"freestanding {name} vs plain path")
+                _equal_on_cpu(got, cpu, f"freestanding {name}")
+            for k in KERNELS:
+                launches[k] += counts[k]
+            report[name] = {"launches": {k: v for k, v in counts.items() if v},
+                            "host_waits": waits,
+                            "keypoints": [int(t.n.sum()) for t in tables if hasattr(t, "angle")]}
+        free_mode = gt.orb_extract(batch[:2], ORB_CAP, ORB_THR)
+    finally:
+        libm32.use_freestanding(False)
+    angles_changed = int((gt.orb_extract(batch[:2], ORB_CAP, ORB_THR).angle.view(torch.int32)
+                          != free_mode.angle.view(torch.int32)).sum())
+    if angles_changed < ORB_CAP:
+        raise AssertionError(f"freestanding mode changed only {angles_changed} angles")
+    emit("freestanding_path", ok=True, frames=ORB_N, max_kps=ORB_CAP, track_kps=TRACK_KPS,
+         mesh=list(SPARSE_MESH), calls=report, angles_changed_vs_fast_two_frames=angles_changed,
+         compared=["card vs plain path on the card (plain trig)", "card vs CPU, bit for bit"])
+    return launches
+
+
+def phase_debug(dev):
+    """``debug`` on card tensors: dumps read back equal to the CPU's, overlays
+    of card tables equal to those of the CPU's tables, the NaN guard."""
+    from grayskull_tpu_torch import debug
+
+    launches = {name: 0 for name in KERNELS}
+    frames = torch.from_numpy(lena_batch(3, LIVE_H, LIVE_W)).to(dev)
+    ramp = (torch.linspace(-3.0, 5.0, LIVE_H * LIVE_W, device=dev).view(LIVE_H, LIVE_W) ** 2)
+    with tempfile.TemporaryDirectory(dir=HERE) as work:
+        card = debug.dump(frames, "card_u8", work) + debug.dump(ramp, "card_f", work)
+        cpu = debug.dump(frames.cpu(), "cpu_u8", work) + debug.dump(ramp.cpu(), "cpu_f", work)
+        for a, b in zip(card, cpu):
+            if open(a, "rb").read() != open(b, "rb").read():
+                raise AssertionError(f"debug.dump: {a} differs from the CPU's {b}")
+        for i, p in enumerate(card[:3]):
+            if not np.array_equal(read_pgm(p), frames[i].cpu().numpy()):
+                raise AssertionError(f"debug.dump: {p} does not read back")
+    frame = frames[0]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    rects = gt.detect_faces(frame, step=2)
+    kps = gt.orb_extract(frame, ORB_CAP, ORB_THR)
+    host = frame.cpu().numpy()
+    rect_overlay = debug.draw_rects(host, rects)
+    cross_overlay = debug.draw_crosses(frame, kps)
+    torch.cuda.synchronize()
+    for k, v in K.launch_counts().items():
+        launches[k] += v
+    if int(rects.n) < 1 or int(kps.n) < 1:
+        raise AssertionError(f"debug: {int(rects.n)} faces, {int(kps.n)} keypoints to draw")
+    if (not np.array_equal(rect_overlay, debug.draw_rects(host, gt.detect_faces(frame.cpu(),
+                                                                                 step=2)))
+            or not np.array_equal(cross_overlay,
+                                  debug.draw_crosses(host, gt.orb_extract(frame.cpu(), ORB_CAP,
+                                                                          ORB_THR)))):
+        raise AssertionError("debug: an overlay of card tables differs from the CPU tables'")
+    try:
+        with debug.nan_guard():
+            z = torch.zeros(64, device=dev)
+            inf = torch.ones(64, device=dev) / z  # inf is not NaN
+            torch.empty(1 << 20, device=dev)
+            z / z
+        raise AssertionError("debug.nan_guard: no FloatingPointError on 0/0 on the card")
+    except FloatingPointError:
+        pass
+    emit("debug", ok=True, dumps=len(card), faces=int(rects.n), keypoints=int(kps.n),
+         inf_passed=bool(torch.isinf(inf).all()),
+         compared=["dump bytes (uint8 batch, float frame) card vs CPU",
+                   "draw_rects of detect_faces, draw_crosses of orb_extract: card vs CPU tables",
+                   "nan_guard raises on 0/0 on the card, not on 1/0 or torch.empty"])
+    return launches
+
+
+class _DemoServer:
+    """A live demo's HTTP server on a free local port, in a thread."""
+
+    def __init__(self, module, demo):
+        import http.client
+        import threading
+
+        self.srv = module.ThreadingHTTPServer(("127.0.0.1", 0), module.make_handler(demo))
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+        self.conn = http.client.HTTPConnection("127.0.0.1", self.srv.server_address[1],
+                                               timeout=300)
+
+    def ask(self, method, path, body=None):
+        self.conn.request(method, path, body)
+        resp = self.conn.getresponse()
+        return resp.status, resp.read()
+
+    def close(self):
+        self.conn.close()
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+
+
+def live_requests(frames):
+    body = np.asarray(frames[2]).tobytes()
+    return [
+        ("GET", "/", None),
+        ("GET", "/frame?i=1&pipeline=blur:1,threshold:otsu"
+                "&analyzers=blobs,keypoints,faces,contours,orb", None),
+        ("GET", "/frame?i=9&pipeline=sobel,blobs&analyzers=keypoints", None),
+        ("GET", "/frame?i=0&pipeline=nosuchop&analyzers=", None),
+        ("POST", "/frame?pipeline=blur:1&analyzers=keypoints,contours", body),
+        ("POST", "/frame?capture=1", body),
+        ("POST", "/frame?pipeline=blur:1&analyzers=orb", np.asarray(frames[3]).tobytes()),
+        ("POST", "/frame?pipeline=blur:1", body[:100]),
+        ("POST", "/frame?pipeline=adaptive:5:5,bogus", body),
+    ]
+
+
+def phase_demos(dev):
+    """The stream demo's ``main`` at its defaults but the spec (32 synthetic
+    frames of 480x640), its last two frames and overlay against the same run on
+    the CPU; the live demo on the card behind a local server, every response
+    against a CPU demo's."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import live_demo_torch
+    import stream_demo_torch
+
+    launches = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory(dir=HERE) as work:
+        card_dir, cpu_dir = os.path.join(work, "card"), os.path.join(work, "cpu")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            stream_demo_torch.main(["--pipeline", STREAM_SPEC, "--frames", str(STREAM_FRAMES),
+                                    "--size", STREAM_SIZE, "--out", card_dir])
+        torch.cuda.synchronize()
+        stream_counts = K.launch_counts()
+        card_lines = buf.getvalue().splitlines()
+        h, w = (int(v) for v in STREAM_SIZE.split("x"))
+        frames = stream_demo_torch.synth_frames(STREAM_FRAMES, h, w)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stream_demo_torch.process_stream(torch.from_numpy(frames[-2:]), STREAM_SPEC, cpu_dir)
+        cpu_lines = buf.getvalue().splitlines()
+        pairs = [(f"frame_{STREAM_FRAMES - 2 + i:04d}.pgm", f"frame_{i:04d}.pgm") for i in (0, 1)]
+        for a, b in pairs + [("overlay.pgm", "overlay.pgm")]:
+            if (open(os.path.join(card_dir, a), "rb").read()
+                    != open(os.path.join(cpu_dir, b), "rb").read()):
+                raise AssertionError(f"stream demo: {a} differs from the CPU run's {b}")
+        written = len(os.listdir(card_dir))
+    found = [ln for ln in card_lines if ln.startswith("  ") and "wrote" not in ln]
+    if found != [ln for ln in cpu_lines if "wrote" not in ln] or written != STREAM_FRAMES + 1:
+        raise AssertionError(f"stream demo: card printed {card_lines}, CPU {cpu_lines}")
+    missing = [k for k in ("blur_hist", "otsu", "ccl", "fast", "integral", "lbp_eval_scale",
+                           "contour") if stream_counts[k] < 1]
+    if missing:
+        raise AssertionError(f"stream demo did not launch {missing}: {stream_counts}")
+
+    live = stream_demo_torch.synth_frames(LIVE_FRAMES, LIVE_H, LIVE_W)
+    card = _DemoServer(live_demo_torch, live_demo_torch.Demo(live, device=dev))
+    cpu = _DemoServer(live_demo_torch, live_demo_torch.Demo(live, device="cpu"))
+    statuses = []
+    try:
+        for method, path, body in live_requests(live):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            got = card.ask(method, path, body)
+            torch.cuda.synchronize()
+            for k, v in K.launch_counts().items():
+                launches[k] += v
+            want = cpu.ask(method, path, body)
+            same = (got[0] == want[0] and (json.loads(got[1]) == json.loads(want[1])
+                                           if got[1][:1] == b"{" else got[1] == want[1]))
+            if not same:
+                raise AssertionError(f"live demo {method} {path}: card {got[0]} differs from "
+                                     f"the CPU's {want[0]}")
+            statuses.append([method, path.split("&")[0], got[0]])
+    finally:
+        card.close()
+        cpu.close()
+    if [s[2] for s in statuses].count(400) != 3:
+        raise AssertionError(f"live demo: expected three 400s, got {statuses}")
+    missing = [k for k in ("blur_hist", "otsu", "ccl", "fast", "orb_moments", "orb_brief",
+                           "integral", "lbp_eval_scale", "contour") if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"live demo did not launch {missing}: {launches}")
+    emit("demos", ok=True, stream_fps_line=card_lines[0], stream_lines=found,
+         stream_launches={k: v for k, v in stream_counts.items() if v},
+         stream_compared=["frames 30 and 31", "overlay.pgm", "analyzer lines"],
+         live_size=[LIVE_H, LIVE_W], live_requests=statuses,
+         live_launches={k: v for k, v in launches.items() if v})
+    return {k: launches[k] + stream_counts[k] for k in KERNELS}, card_lines[0]
+
+
+def sass_instructions(kernels=("fs_atan2_kernel", "fs_sin_kernel")):
+    """{kernel: {opcode: count}} of the FP32-pipe and SFU instructions in each
+    named kernel's SASS (``cuobjdump -sass`` of the built library): every
+    instruction of its code once, the division's slow path and the NaN exit
+    included, so an upper count of one element's; None if ``cuobjdump`` fails."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        emit("sass", ok=False, error=str(e)[:300])
+        return None
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in kernels if k in line), None)
+            if current:
+                counts[current] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if current and m and m.group(1) in FP32_PIPE_OPS + SFU_OPS:
+            counts[current][m.group(1)] = counts[current].get(m.group(1), 0) + 1
+    return counts if all(k in counts for k in kernels) else None
+
+
+def sine_steps(x):
+    """The range reduction's steps over the float32 tensor ``x`` (|x| < 2^20)."""
+    pi, two_pi = float(np.float32(3.141592)), float(np.float32(6.283185))
+    steps = 0
+    for over, step in ((lambda t: t > pi, -two_pi), (lambda t: t < -pi, two_pi)):
+        v = x
+        while True:
+            m = over(v)
+            k = int(m.sum())
+            if not k:
+                break
+            steps += k
+            v = torch.where(m, v + step, v)
+    return steps
+
+
+def fs_ops(sass, n_atan2, sin_inputs):
+    """K21's operations by kind: each element's SASS instructions and, in the
+    sine, two (a compare and an add) a reduction step this data takes."""
+    if sass is None:
+        return 0
+    fp32 = lambda k: sum(c for op, c in sass[k].items() if op in FP32_PIPE_OPS)  # noqa: E731
+    sfu = lambda k: sum(c for op, c in sass[k].items() if op in SFU_OPS)  # noqa: E731
+    n_sin = sum(a.numel() for a in sin_inputs)
+    steps = sum(sine_steps(a) for a in sin_inputs)
+    return {"fp32": fp32("fs_atan2_kernel") * n_atan2 + fp32("fs_sin_kernel") * n_sin + 2 * steps,
+            "conversion": sfu("fs_atan2_kernel") * n_atan2 + sfu("fs_sin_kernel") * n_sin}
+
+
+def phase_freestanding_timing(card, orb_frames, stream_fps_line):
+    """K21 at ``orb_extract``'s call (its three launches on the 16 x 500
+    keypoints' moments) and on the 1 M sweep, by CUDA events and by device time,
+    beside its plain versions, its bound and ``torch.atan2`` (a yardstick: not
+    the same function); ``orb_extract`` frames/s in the fast and the
+    freestanding mode; the stream demo's rate."""
+    F = K.freestanding
+    batch = orb_frames[0]
+    dev = batch.device
+    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
+    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
+    m01, m10 = (m.to(torch.float32) for m in K.orb_moments(batch, sx, sy))
+    angle = F.fs_atan2(m01, m10)
+
+    def at_call():
+        a = F.fs_atan2(m01, m10)
+        return a, F.fs_sin(a), F.fs_sin(a, FS_COS_OFFSET)
+
+    def plain_at_call():
+        a = F.fs_atan2_plain(m01, m10)
+        return a, F.fs_sin_plain(a), F.fs_sin_plain(a, FS_COS_OFFSET)
+
+    sass = sass_instructions()
+    n = m01.numel()
+    entry = kernel_entry(timeit(at_call) * 1e3, timeit(plain_at_call, iters=3) * 1e3,
+                         12 * n + 8 * n + 8 * n,
+                         fs_ops(sass, n, (angle, angle + float(np.float32(FS_COS_OFFSET)))),
+                         timeit(torch.atan2, m01, m10) * 1e3,
+                         "torch.atan2 float32 on the same moments: a yardstick, not the same "
+                         "function (no GS_NO_STDLIB polynomial, no sine)")
+    entry.update(device_ms=device_ms(at_call, kernel="fs_"), launches_a_call=3, elements=n,
+                 sass_instructions=sass, bytes_counted="12 B an atan2 element, 8 B a sine's")
+    emit("kernel_time", card=card, kernel="freestanding", call="orb_extract", shape=[ORB_N, ORB_CAP],
+         **entry)
+    rng = np.random.default_rng(9)
+    y, x = (t.to(dev) for t in fs_atan2_inputs(rng))
+    wide = fs_sin_inputs(rng)[0].to(dev)
+    sweep = {}
+    for name, fn, plain, lib, nbytes, ops in (
+            ("atan2", lambda: F.fs_atan2(y, x), lambda: F.fs_atan2_plain(y, x),
+             lambda: torch.atan2(y, x), 12 * y.numel(), fs_ops(sass, y.numel(), ())),
+            ("sin", lambda: F.fs_sin(wide), lambda: F.fs_sin_plain(wide),
+             lambda: torch.sin(wide), 8 * wide.numel(), fs_ops(sass, 0, (wide,)))):
+        e = kernel_entry(timeit(fn) * 1e3, timeit(plain, iters=3) * 1e3, nbytes, ops,
+                         timeit(lib) * 1e3, f"torch.{name} float32 (a yardstick)")
+        e.update(device_ms=device_ms(fn, kernel="fs_"), elements=y.numel())
+        sweep[name] = e
+        emit("kernel_time", card=card, kernel="freestanding", call=f"{name} sweep",
+             shape=[y.numel()], **e)
+    rates = {}
+    for mode in ("fast", "freestanding"):
+        libm32.use_freestanding(mode == "freestanding")
+        try:
+            rates[mode] = ORB_N / timeit(gt.orb_extract, batch, ORB_CAP, ORB_THR)
+        finally:
+            libm32.use_freestanding(False)
+    emit("freestanding_timing", card=card, orb_extract_frames_per_sec=rates,
+         k21_at_orb_extract_events_ms=entry["ms"], k21_at_orb_extract_device_ms=entry["device_ms"],
+         k21_sweep={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                          "library_ms")} for k, v in sweep.items()},
+         stream_demo=stream_fps_line,
+         windows="median of 3 windows of 20 calls after 2 warm-up calls (plain: 3 calls); "
+                 "device: torch.profiler over 20 calls")
+    return {"freestanding": entry}
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an earlier commit's tree: its K4, K8, K10, K19 and K20 "
@@ -2821,6 +3278,9 @@ def main():
     phase_sharded_kernels(chk, np.random.default_rng(5), dev)
     phase_contour_template_kernels(chk, np.random.default_rng(6), dev)
     phase_sparse_kernels(chk, np.random.default_rng(7), dev)
+    t0 = time.perf_counter()
+    phase_freestanding_kernels(chk, np.random.default_rng(8), dev)
+    slice_seconds = {"k21_vs_plain": time.perf_counter() - t0}
     batch, pre_launches = phase_main_path(chk, dev)
     faces_batch, faces_launches = phase_faces_path(chk, dev)
     orb_frames, orb_launches = phase_orb_path(chk, dev)
@@ -2830,6 +3290,11 @@ def main():
     sharded_launches = phase_sharded_path(chk, dev, batch)
     tc_launches = phase_contour_template_path(chk, dev)
     sparse_launches, sparse_calls = phase_sparse_path(chk, dev)
+    t0 = time.perf_counter()
+    fs_launches = phase_freestanding_path(chk, dev, orb_frames)
+    debug_launches = phase_debug(dev)
+    demo_launches, stream_fps_line = phase_demos(dev)
+    slice_seconds["paths"] = time.perf_counter() - t0
     bw_launches, times, rates = phase_bandwidth(card, dev)
     times.update(phase_timing(batch, card))
     times.update(phase_sharded_timing(batch, card))
@@ -2837,6 +3302,10 @@ def main():
     times.update(phase_faces_timing(faces_batch, card, phase_faces_work(faces_batch), parent))
     times.update(phase_orb_timing(orb_frames, card))
     phase_orb_device_time(orb_frames, times, card, parent)
+    t0 = time.perf_counter()
+    times.update(phase_freestanding_timing(card, orb_frames, stream_fps_line))
+    slice_seconds["timing"] = time.perf_counter() - t0
+    emit("freestanding_debug_demos_seconds", **slice_seconds)
     times.update(phase_scan_timing(scan_batch, scan_corners, card, parent))
     del scan_batch, faces_batch, orb_frames
     times.update(phase_dense_timing(dense_batch, dense_binary, card))
@@ -2848,7 +3317,8 @@ def main():
     launches = {name: pre_launches[name] + faces_launches[name] + orb_launches[name]
                 + scan_launches[name] + dense_launches[name] + cli_launches[name]
                 + sharded_launches[name] + tc_launches[name] + bw_launches[name]
-                + sparse_launches[name]
+                + sparse_launches[name] + fs_launches[name] + debug_launches[name]
+                + demo_launches[name]
                 for name in KERNELS}
     emit("elapsed", seconds=time.perf_counter() - t_start)
     copy_rate = rates["copy_gbps"] * 1e9

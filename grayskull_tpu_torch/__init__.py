@@ -37,12 +37,18 @@ template matching and contour tracing::
     scores = gs.parallel.match_template_sharded(frames, frames[0, 200:232, 300:332], mesh)
     # every blob's outer contour of one binary frame, in one launch
     table = gs.find_contours(gs.threshold(frames[0], 128), 16, 64)
+    # the reference's GS_NO_STDLIB trig (K21 on the card) for the ORB path
+    gs.libm32.use_freestanding(True)
+
+``debug`` dumps frames to PGMs, guards float code against NaNs and draws
+overlays; ``examples/stream_demo_torch.py`` and ``examples/live_demo_torch.py``
+are the JAX package's demos on the port.
 
 The package imports no JAX and builds nothing at import.
 """
 
-from . import (cascade, core, io, kernels, libm32, native, ops, parallel,  # noqa: F401
-               pipelines, profiling, structlog)
+from . import (cascade, core, debug, io, kernels, libm32, native, ops,  # noqa: F401
+               parallel, pipelines, profiling, structlog)
 from .cascade import load_frontalface, load_opencv_xml  # noqa: F401
 from .core import (Blobs, Contour, Keypoints, LbpCascade, Matches, Point, Rect,  # noqa: F401
                    Rects, as_image, is_batched)

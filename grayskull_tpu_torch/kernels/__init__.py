@@ -24,6 +24,9 @@
   instruction)
 * :mod:`.contour` — K20 ``contour`` (the Moore walks of a call, a warp each and
   side by side, one ballot a step)
+* :mod:`.freestanding` — K21 ``fs_atan2`` and ``fs_sin`` (the reference's
+  ``GS_NO_STDLIB`` trig of the ``freestanding`` mode, a thread an element,
+  each element's range reduction in its own loop)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -35,6 +38,7 @@ from . import bandwidth as _bandwidth_mod
 from . import ccl as _ccl_mod
 from . import contour as _contour_mod
 from . import fast as _fast_mod
+from . import freestanding as _freestanding_mod
 from . import integral as _integral_mod
 from . import lbp as _lbp_mod
 from . import otsu as _otsu_mod
@@ -47,6 +51,7 @@ from .bandwidth import copy, copy_plain, triad, triad_plain  # noqa: F401
 from .ccl import ccl, ccl_plain  # noqa: F401
 from .contour import contour, contour_plain  # noqa: F401
 from .fast import fast, fast_plain  # noqa: F401
+from .freestanding import fs_atan2, fs_atan2_plain, fs_sin, fs_sin_plain  # noqa: F401
 from .integral import integral, integral_plain  # noqa: F401
 from .lbp import lbp_eval_scale, lbp_eval_scale_plain  # noqa: F401
 from .otsu import otsu, otsu_plain  # noqa: F401
@@ -81,6 +86,10 @@ __all__ = [
     "filter3_plain",
     "filter_plain",
     "frame_histograms",
+    "fs_atan2",
+    "fs_atan2_plain",
+    "fs_sin",
+    "fs_sin_plain",
     "integral",
     "integral_plain",
     "launch_counts",
@@ -115,7 +124,7 @@ __all__ = [
 _COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
              _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches, _ccl_mod.launches,
              _warp_mod.launches, _resize_mod.launches, _bandwidth_mod.launches,
-             _template_mod.launches, _contour_mod.launches)
+             _template_mod.launches, _contour_mod.launches, _freestanding_mod.launches)
 
 
 def launch_counts() -> dict:

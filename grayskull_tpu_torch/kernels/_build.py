@@ -13,8 +13,8 @@ reused.  It is written to a temporary file first and moved into place with
 :func:`os.replace`, so a second process never loads a half-written library.
 
 ``-fmad=false`` keeps ``a*b+c`` as two rounded operations everywhere: the Otsu
-sweep, the rBRIEF rotation, the quad warp and the bilinear resize must round
-each float operation as the C reference does.
+sweep, the rBRIEF rotation, the quad warp, the bilinear resize and the
+freestanding trig must round each float operation as the C reference does.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _UINT = ctypes.c_uint
 _SIZE = ctypes.c_size_t
+_FLOAT = ctypes.c_float
 # C entry -> argument types; every pointer and the stream are c_void_p.
 _SIGNATURES = {
     "gs_blur_hist": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
@@ -66,6 +67,8 @@ _SIGNATURES = {
     "gs_match_template": (_PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
     "gs_contour": (_PTR, _PTR, *(_INT,) * 3, _PTR, _INT, _INT, *(_PTR,) * 6, *(_INT,) * 3,
                    *(_PTR,) * 5, _PTR),
+    "gs_fs_atan2": (_PTR, _PTR, _PTR, _SIZE, _PTR),
+    "gs_fs_sin": (_PTR, _PTR, _SIZE, _FLOAT, _PTR),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """float32 ``atan2f`` / ``sinf`` of the ORB orientation and descriptor path.
 
 The reference calls libm's ``atan2f`` and ``sinf`` (grayskull.h:100-101), so its
-bits depend on the libm it was linked against.  Two modes, as in
+bits depend on the libm it was linked against.  Three modes, as in
 ``grayskull_tpu.libm32``:
 
 * **fast** (the default): float64 on the tensor's own device, rounded to
@@ -13,8 +13,18 @@ bits depend on the libm it was linked against.  Two modes, as in
   copies its input to the host and the result back, one round-trip, as the
   JAX package's ``pure_callback`` does; it is the mode of the parity tests.
 
-The JAX package's third mode, ``freestanding`` (the reference's
-``GS_NO_STDLIB`` polynomials), is not ported yet.
+* **freestanding**: the reference's ``GS_NO_STDLIB`` polynomials (the octant
+  ``atan2`` and the range-reduced quintic sine, grayskull.h:70-88), the math of
+  its nostdlib build.  A CUDA tensor runs K21 (``kernels.freestanding``: a
+  thread an element, one launch a call, no host wait), a CPU tensor its plain
+  version; both are bit-identical to the JAX package's freestanding mode on
+  the CPU, but for two inputs JAX never returns from (the sine's ``±inf``, and
+  every ``|x| >= 2^20``, give NaN here) and NaN payloads (every NaN is
+  ``0x7fc00000``).
+
+``exact_mode()`` is true in the last two.  ``force_reference=True`` runs the
+plain freestanding polynomials on the tensor's own device (the ORB entry
+points' plain path); it changes nothing in the other modes.
 """
 
 from __future__ import annotations
@@ -25,14 +35,17 @@ import ctypes.util
 import numpy as np
 import torch
 
-__all__ = ["atan2f", "cosf_like_reference", "exact_mode", "sinf", "trig_mode",
-           "use_exact_host_libm"]
+from .kernels.freestanding import fs_atan2, fs_atan2_plain, fs_sin, fs_sin_plain
 
-_MODE = "fast"  # "fast" | "exact_host"
+__all__ = ["atan2f", "cosf_like_reference", "exact_mode", "sinf", "trig_mode",
+           "use_exact_host_libm", "use_freestanding"]
+
+_MODE = "fast"  # "fast" | "exact_host" | "freestanding"
+_COS_OFFSET = 1.57079  # the reference's cosine is gs_sin(angle + 1.57079f)
 
 
 def exact_mode() -> bool:
-    """True when the bit-exact host-libm mode is active."""
+    """True when a bit-exact parity mode (``exact_host`` or ``freestanding``) is active."""
     return _MODE != "fast"
 
 
@@ -44,6 +57,17 @@ def use_exact_host_libm(enable: bool = True) -> None:
     """Toggle bit-exact host-libm trig (the parity tests' mode)."""
     global _MODE
     _MODE = "exact_host" if enable else "fast"
+
+
+def use_freestanding(enable: bool = True) -> None:
+    """Toggle the reference's ``GS_NO_STDLIB`` polynomial trig (grayskull.h:70-88)."""
+    global _MODE
+    _MODE = "freestanding" if enable else "fast"
+
+
+# the JAX package's names for the plain polynomials
+_freestanding_atan2 = fs_atan2_plain
+_freestanding_sin = fs_sin_plain
 
 
 _libm = None
@@ -75,25 +99,36 @@ def _as_f32(v, like=None) -> torch.Tensor:
                            device=like.device if isinstance(like, torch.Tensor) else None)
 
 
-def atan2f(y, x) -> torch.Tensor:
+def atan2f(y, x, force_reference: bool = False) -> torch.Tensor:
     """``atan2f(y, x)`` in float32, by the current mode."""
     y, x = torch.broadcast_tensors(_as_f32(y, x), _as_f32(x, y))
     if _MODE == "exact_host":
         return _on_host(_get_libm().atan2f, y.contiguous(), x.contiguous())
+    if _MODE == "freestanding":
+        if force_reference:
+            return fs_atan2_plain(y, x)
+        return fs_atan2(y.contiguous(), x.contiguous())
     return torch.atan2(y.to(torch.float64), x.to(torch.float64)).to(torch.float32)
 
 
-def sinf(x) -> torch.Tensor:
+def sinf(x, force_reference: bool = False) -> torch.Tensor:
     """``sinf(x)`` in float32, by the current mode."""
     x = _as_f32(x)
     if _MODE == "exact_host":
         return _on_host(_get_libm().sinf, x)
+    if _MODE == "freestanding":
+        return fs_sin_plain(x) if force_reference else fs_sin(x.contiguous())
     return torch.sin(x.to(torch.float64)).to(torch.float32)
 
 
-def cosf_like_reference(x) -> torch.Tensor:
+def cosf_like_reference(x, force_reference: bool = False) -> torch.Tensor:
     """The reference's cosine, ``gs_sin(angle + 1.57079f)`` (grayskull.h:626): the add
     rounds to float32 and the constant is truncated, so this is not ``cos(angle)``."""
+    x = _as_f32(x)
+    if _MODE == "freestanding":  # K21 rounds the add in: one launch
+        if force_reference:
+            return fs_sin_plain(x, _COS_OFFSET)
+        return fs_sin(x.contiguous(), _COS_OFFSET)
     # the float32 constant as an exact Python float: the add rounds once to float32,
     # and no tensor is copied to the device (a host sync)
-    return sinf(_as_f32(x) + float(np.float32(1.57079)))
+    return sinf(x + float(np.float32(_COS_OFFSET)))

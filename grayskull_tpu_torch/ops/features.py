@@ -12,14 +12,16 @@
   stable sort (``_select_candidates_sort``).
 * Orientation and rBRIEF: K7 and K8 (``kernels.patches``) read each keypoint's
   window from the frame; ``atan2f``, ``sinf`` and the reference's
-  ``sinf(a + 1.57079f)`` cosine run between them in ``libm32``.
+  ``sinf(a + 1.57079f)`` cosine run between them in ``libm32`` (K21 in the
+  ``freestanding`` mode).
 * Matching: XOR and a SWAR popcount over int64 words, then the reference's
   best / second-best bookkeeping as masked reductions (plain PyTorch, as the
   JAX package leaves it to XLA).
 
 Every op takes one ``(H, W)`` frame or, where the JAX op does, an ``(N, H, W)``
 batch, on any device, with no host sync outside the ``exact_host`` trig mode.
-``force_reference=True`` runs the kernels' plain versions on the input's device.
+``force_reference=True`` runs the kernels' plain versions on the input's device,
+the freestanding trig's too.
 """
 
 from __future__ import annotations
@@ -174,8 +176,10 @@ def orb_extract(img, max_kps: int, threshold, limit=None,
     sx = torch.clamp(x, ORB_RADIUS, w - ORB_RADIUS - 1)
     sy = torch.clamp(y, ORB_RADIUS, h - ORB_RADIUS - 1)
     m01, m10 = moments(frames, sx, sy, ORB_RADIUS)
-    angle = atan2f(m01.to(torch.float32), m10.to(torch.float32))
-    desc = brief(frames, sx, sy, sinf(angle), cosf_like_reference(angle))
+    # force_reference also keeps the freestanding trig plain (not K21)
+    angle = atan2f(m01.to(torch.float32), m10.to(torch.float32), force_reference)
+    desc = brief(frames, sx, sy, sinf(angle, force_reference),
+                 cosf_like_reference(angle, force_reference))
     ok = torch.arange(cap, device=frames.device)[None, :] < n[:, None]
     angle = torch.where(ok, angle, 0.0)
     desc = torch.where(ok[..., None], desc.view(torch.int32), 0).view(torch.uint32)

@@ -472,9 +472,9 @@ def orb_extract_spatial(img, mesh: Mesh, max_kps: int, threshold, space_axis: st
 
     ``img``: (H, W) uint8 with H divisible by the space axis and
     ``H / shards >= 28`` (the patch halo); ``ValueError`` otherwise.  K6 per
-    shard slab, K7 and K8 per shard on the keypoints of its rows; no host
-    wait outside the ``exact_host`` trig mode.  ``kernels=False`` runs the
-    plain versions.
+    shard slab, K7 and K8 per shard on the keypoints of its rows (and K21 on
+    the first device in the ``freestanding`` trig mode); no host wait outside
+    the ``exact_host`` trig mode.  ``kernels=False`` runs the plain versions.
     """
     frame = as_image(img)
     if frame.ndim != 2:
@@ -529,8 +529,8 @@ def orb_extract_spatial(img, mesh: Mesh, max_kps: int, threshold, space_axis: st
         a, b = moments(slab, xs, ys, ORB_RADIUS)
         m01 = torch.where(own, a.to(dev0, non_blocking=True), m01)
         m10 = torch.where(own, b.to(dev0, non_blocking=True), m10)
-    angle = atan2f(m01.to(torch.float32), m10.to(torch.float32))
-    sin, cos = sinf(angle), cosf_like_reference(angle)
+    angle = atan2f(m01.to(torch.float32), m10.to(torch.float32), not use)
+    sin, cos = sinf(angle, not use), cosf_like_reference(angle, not use)
     desc = torch.zeros((1, cap, 8), dtype=torch.int32, device=dev0)
     for slab, own, (xs, ys) in zip(slabs, owned, coords):
         dev = slab.device

@@ -28,7 +28,8 @@ SHAPES = [(2, 24, 128), (1, 97, 200), (1, 7, 8), (1, 17, 129), (2, 816, 612)]
 NO_DENSE = {"adaptive": 0, "morph": 0, "filter3": 0, "resize": 0}  # K11-K14 not launched
 NO_SHARDED = {"blur_hist_window": 0, "threshold_sobel_window": 0, "copy": 0,  # K15-K18 neither
               "triad": 0, "match_template": 0, "contour": 0,  # nor K19, K20
-              "quad_warp_rows": 0}  # nor K10's rows entry
+              "quad_warp_rows": 0,  # nor K10's rows entry
+              "freestanding": 0}  # nor K21
 COPY_SIZES = [1, 15, 16, 17, 63, 64, 65, 2047, 2048, 2049, 4095, 4096, 4097, 12295, 16383, 16384,
               16385, 2**20 + 3, 2**26]
 COPY_OFFSETS = (0, 1, 4, 8)  # bytes the operands start past a 16-byte boundary
@@ -1266,3 +1267,106 @@ def test_contour_find_where_walks_meet_on_card(cuda_device, case):
     if name.startswith("dots"):
         assert int(K.contour(g, torch.zeros_like(g), table=table, label_map=lm,
                              max_contours=max_contours)[1]) == 80  # three windows of walks
+
+
+def _fs_sin_cases(rng):
+    """float32 sine inputs: both reduction loops, ORB's range, the octant's
+    edges, the loop-end cases (NaN past 2^20) and the largest input below it."""
+    below = np.nextafter(np.float32(2.0**20), np.float32(0))
+    return np.concatenate([
+        rng.uniform(-30.0, 30.0, 200_000), rng.uniform(-np.pi, np.pi + 1.58, 50_000),
+        [0.0, -0.0, 3.141592, -3.141592, 1.570796, 6.283185, -6.283185, np.inf, -np.inf,
+         np.nan, 2.0**27, -(2.0**27), 2.0**20, -(2.0**20), 3.4e38, below, -below]],
+    ).astype(np.float32)
+
+
+def _fs_atan2_cases(rng):
+    m = 255 * 709 * 15
+    ys = np.concatenate([rng.integers(-m, m, 100_000), rng.uniform(-1e6, 1e6, 100_000),
+                         [0.0, -0.0, 0.0, -0.0, 1.0, -1.0, np.nan, np.inf, 1.0, 0.0]])
+    xs = np.concatenate([rng.integers(-m, m, 100_000), rng.uniform(-1e6, 1e6, 100_000),
+                         [0.0, 0.0, -0.0, -0.0, 0.0, 0.0, 1.0, 1.0, np.nan, np.inf]])
+    return ys.astype(np.float32), xs.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_freestanding_k21_matches_plain_on_card(cuda_device):
+    """K21 against its plain versions (on the CPU, where the loops test on the
+    host), bit for bit, NaNs included: every NaN is 0x7fc00000 on both."""
+    from grayskull_tpu_torch.kernels import freestanding as F
+
+    rng = np.random.default_rng(81)
+    ys, xs = _fs_atan2_cases(rng)
+    y, x = torch.from_numpy(ys), torch.from_numpy(xs)
+    K.reset_launch_counts()
+    got = F.fs_atan2(y.to(cuda_device), x.to(cuda_device))
+    assert K.launch_counts()["freestanding"] == 1
+    assert torch.equal(got.cpu().view(torch.int32), F.fs_atan2_plain(y, x).view(torch.int32))
+    a = torch.from_numpy(_fs_sin_cases(rng))
+    for offset in (None, 1.57079):
+        got = F.fs_sin(a.to(cuda_device), offset).cpu()
+        assert torch.equal(got.view(torch.int32), F.fs_sin_plain(a, offset).view(torch.int32))
+    assert K.launch_counts()["freestanding"] == 3
+    assert np.isnan(F.fs_sin(torch.tensor([np.inf], device=cuda_device)).item())
+
+
+def _host_waits(fn, *args):
+    torch.cuda.synchronize()
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.cuda
+def test_freestanding_orb_on_card_matches_cpu(cuda_device):
+    """The ORB path in the freestanding mode: K21 once for atan2f and once each
+    for the sine and the reference's cosine, no host wait, and tables equal to
+    the CPU's bit for bit (and to the plain path on the card)."""
+    lena = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/lena.pgm")
+    frames = torch.from_numpy(np.stack([lena, np.roll(lena, 9, axis=1)])).to(cuda_device)
+    gt.orb_extract(frames, 300, 20)  # K8's tables reach the card: a wait, once
+    libm32.use_freestanding(True)
+    try:
+        K.reset_launch_counts()
+        on_card, waits = _host_waits(gt.orb_extract, frames, 300, 20)
+        assert waits == 0 and K.launch_counts()["freestanding"] == 3
+        on_cpu = gt.orb_extract(frames.cpu(), 300, 20)
+        plain = gt.orb_extract(frames, 300, 20, force_reference=True)
+        tk, sk, m = gt.track(frames[0, :100, :120], frames[1], max_kps=400)
+        ck = gt.track(frames[0, :100, :120].cpu(), frames[1].cpu(), max_kps=400)
+    finally:
+        libm32.use_freestanding(False)
+    for a, b, c in zip(_bits_of(on_card), _bits_of(on_cpu), _bits_of(plain)):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+    for got, want in zip((tk, sk, m), ck):
+        for a, b in zip(_bits_of(got), _bits_of(want)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_live_demo_on_card_matches_cpu(cuda_device):
+    import os
+    import sys
+
+    examples = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    import live_demo_torch
+    import stream_demo_torch
+
+    frames = stream_demo_torch.synth_frames(4, 120, 160)
+    card = live_demo_torch.Demo(frames, device="cuda")
+    cpu = live_demo_torch.Demo(frames, device="cpu")
+    analyzers = ["blobs", "keypoints", "faces", "contours", "orb"]
+    for i, spec in ((1, "blur:1,threshold:otsu"), (2, "sobel"), (3, "adaptive:5:5,erode")):
+        assert card.frame(i, spec, analyzers) == cpu.frame(i, spec, analyzers)
+    assert card.capture_template(frames[2]) == cpu.capture_template(frames[2])
+    assert card.process(frames[1], "blur:1", ["orb"]) == cpu.process(frames[1], "blur:1", ["orb"])

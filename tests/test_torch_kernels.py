@@ -217,12 +217,13 @@ def test_plain_runs_on_cpu_without_counting():
     K.triad(imgs, imgs)
     K.match_template(imgs, imgs[0, :2, :3].contiguous())
     K.contour(imgs[0], torch.zeros_like(imgs[0]), start=(1, 1))
+    K.fs_sin(K.fs_atan2(torch.ones(3), torch.ones(3)), 1.57079)
     assert K.launch_counts() == before
     assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale",
                            "fast", "orb_moments", "orb_brief", "ccl", "quad_warp", "adaptive",
                            "morph", "filter3", "resize", "blur_hist_window",
                            "threshold_sobel_window", "copy", "triad", "match_template", "contour",
-                           "quad_warp_rows"}
+                           "quad_warp_rows", "freestanding"}
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
@@ -612,7 +613,8 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
     srcs = _build.sources()
     assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu", "fast.cu",
                                       "patches.cu", "ccl.cu", "warp.cu", "stencil3.cu",
-                                      "resize.cu", "bandwidth.cu", "template.cu", "contour.cu"}
+                                      "resize.cu", "bandwidth.cu", "template.cu", "contour.cu",
+                                      "freestanding.cu"}
     for src in srcs:  # one nvcc per source, started together
         cmd = _build.compile_command(src, tmp_path / f"{src.stem}.o")
         assert cmd[0].endswith("nvcc")
@@ -636,7 +638,8 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
                                        "gs_quad_warp", "gs_adaptive", "gs_morph", "gs_filter3",
                                        "gs_resize", "gs_blur_hist_window",
                                        "gs_threshold_sobel_window", "gs_copy", "gs_triad",
-                                       "gs_match_template", "gs_contour", "gs_quad_warp_rows"}
+                                       "gs_match_template", "gs_contour", "gs_quad_warp_rows",
+                                       "gs_fs_atan2", "gs_fs_sin"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

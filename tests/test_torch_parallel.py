@@ -275,7 +275,12 @@ def test_package_and_chip_smoke_import_no_jax():
     files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_sweep.py")]
     for root, _, names in os.walk(os.path.join(REPO, "grayskull_tpu_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    examples = os.path.join(REPO, "examples")
+    files += [os.path.join(examples, f) for f in os.listdir(examples) if f.endswith("_torch.py")]
     bad = [f for f in files if pattern.search(open(f, encoding="utf-8").read())]
     assert len(files) > 30 and not bad, bad
-    for module in (("parallel", "sparse.py"), ("native.py",)):
+    for module in (("parallel", "sparse.py"), ("native.py",), ("debug.py",),
+                   ("kernels", "freestanding.py")):
         assert os.path.join(REPO, "grayskull_tpu_torch", *module) in files, module
+    for demo in ("stream_demo_torch.py", "live_demo_torch.py"):
+        assert os.path.join(examples, demo) in files, demo
