@@ -68,13 +68,18 @@ counts set to 0 just before it and read just after:
   top, the middle and the bottom, one-row bands and pages of one row or
   column;
 * the ``freestanding`` trig mode (``libm32.use_freestanding``, the reference's
-  ``GS_NO_STDLIB`` polynomials): K21 against its plain versions on 1 M (y, x)
-  pairs and 1 M sine inputs, ORB's range with and without the cosine's offset,
-  the loop-end inputs (NaN) and the largest inside the bound; then the ORB
-  frames' ``orb_extract``, ``track`` on aruco and ``orb_extract_spatial`` over
-  a (1, 4) mesh of ``cuda:0`` in that mode, each with its K21 launches and
-  host waits counted (none), against the plain path on the card (the plain
-  trig) and on the CPU, bit for bit;
+  ``GS_NO_STDLIB`` polynomials): K21's orientation entry (``fs_orient``)
+  against its plain version on 1 M int32 moment pairs (0/0, +-1, int32's
+  ends, odd values past 2^24, angles near +-pi and cosine inputs past pi
+  among them) and at ``orb_extract``'s call, its atan2 and sine entries on
+  1 M (y, x) pairs and 1 M sine inputs, ORB's range with and without the
+  cosine's offset, the loop-end inputs (NaN) and the largest inside the
+  bound; then the ORB frames' ``orb_extract``, ``track`` on aruco and
+  ``orb_extract_spatial`` over a (1, 4) mesh of ``cuda:0`` in that mode,
+  each with its K21 launches (1, 6 and 1) and host waits (none) counted,
+  against the plain path on the card (the plain trig) and on the CPU, bit
+  for bit, and the device launches of an ``orb_extract`` call in both modes
+  from the profiler;
 * ``debug``: ``dump`` of a card batch and a card float frame against the
   CPU's files, ``draw_rects`` and ``draw_crosses`` of card ``detect_faces``
   and ``orb_extract`` tables against the CPU tables', ``nan_guard`` on the card;
@@ -102,10 +107,13 @@ side by side) times one dependent shared-memory load
 (``SHARED_LOAD_LATENCY_CYCLES``, which ``chip_sweep.py --source contour``
 measures).  K19's is its correlation's byte products at the int8 tensor rate,
 and its design's own ceiling the products its tensor-core tiles issue.
-K21 is timed at ``orb_extract``'s call and on the 1 M sweep, beside
-``torch.atan2`` (a yardstick, not the same function); its operations are the
-FP32-pipe and SFU instructions of its kernels' SASS (``cuobjdump -sass``, every
-instruction once) and two a range-reduction step the data takes.
+K21's ``fs_orient`` is timed at ``orb_extract``'s call and on 1 M moment
+pairs (L2-warm, and cold after 128 MiB written), in turns with the
+three-launch composition it replaced, beside an empty kernel on the same
+grid (``LAUNCH_FLOOR_SOURCE``: the launch floor) and ``torch.atan2`` (a
+yardstick, not the same function); its operations are the FP32-pipe and
+conversion-rate instructions of its kernels' SASS (``cuobjdump -sass``,
+every instruction once) and two a range-reduction step the data takes.
 Each phase prints one JSON line; then come the per-kernel summary line (each
 kernel's launches on its path, largest error, time, plain version's time,
 bound and, where one PyTorch call computes the same function, that call's
@@ -1499,8 +1507,9 @@ def phase_scan_path(chk, dev):
 
 def profile_calls(fn, *args, calls=10, sessions=3):
     """Device time per call by kernel and by the PyTorch op that launched it
-    (over ``calls`` calls, device events only), the CUDA-event time and the
-    host's enqueue time of one call, and the idle share 1 - busy / timed.  A
+    (over ``calls`` calls, device events only), the device events (kernels,
+    copies, fills) a call, the CUDA-event time and the host's enqueue time of
+    one call, and the idle share 1 - busy / timed.  A
     profiler session that records no device events is run again, up to
     ``sessions`` in all."""
     from torch.profiler import ProfilerActivity, profile
@@ -1529,6 +1538,7 @@ def profile_calls(fn, *args, calls=10, sessions=3):
              if e.key.startswith("aten::") and e.self_device_time_total > 0]
     return {"timed_ms": timed * 1e3, "enqueue_ms": enqueue * 1e3, "device_busy_ms": busy,
             "idle_share": 1 - busy / (timed * 1e3), "device_kernels": len(by_kernel),
+            "device_launches_a_call": len(on_device) / calls,
             "device_ms_by_kernel": [[name[:120], ms] for name, ms in
                                     sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]],
             "device_ms_by_op": sorted(by_op, key=lambda kv: -kv[1])[:12]}
@@ -2826,9 +2836,30 @@ FS_COS_OFFSET = 1.57079  # the reference's cosine is gs_sin(angle + 1.57079f)
 FS_LOOP_END = (np.inf, -np.inf, np.nan, 2.0**27, -(2.0**27), 2.0**20, -(2.0**20), 3.4e38)
 FS_INSIDE = (float(np.nextafter(np.float32(2.0**20), np.float32(0))), -(2.0**18 + 0.25))
 FS_OWNER = {"angle": "freestanding", "descriptor": "orb_brief"}
-# SASS opcodes that issue on the FP32 pipe, and the SFU's (at the conversion rate)
-FP32_PIPE_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET")
-SFU_OPS = ("MUFU",)
+# fs_moment_pairs' edges: 0, +-1, both ends of int32, odd values past 2^24
+# (the cast to float32 rounds them)
+FS_MOMENT_EDGES = (0, 1, -1, 2, -2, -2**31, 2**31 - 1, -2**31 + 1, 2**24 + 1, -(2**24 + 1),
+                   2**25 + 3, 2**30 + 7)
+FS_FLUSH_BYTES = 128 << 20  # written between the cold sweep's calls: past the 50 MB L2
+FS_PATH_LAUNCHES = {"orb_extract": 1, "track": 6, "orb_extract_spatial": 1}  # K21's
+# SASS opcodes that issue on the FP32 pipe, and those at the conversion rate
+# (the SFU's MUFU, and I2F)
+FP32_PIPE_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET", "I2FP")
+CONVERSION_OPS = ("MUFU", "I2F")
+# An empty kernel with gs_fs_orient's arguments: the device time of a launch
+# of a grid, the floor under K21's call.
+LAUNCH_FLOOR_SOURCE = r"""#include <cstddef>
+#include <cuda_runtime.h>
+
+__global__ void launch_floor_kernel(const int*, const int*, float*, float*, float*, size_t,
+                                    bool) {}
+
+extern "C" int gs_launch_floor(unsigned blocks, unsigned threads, void* stream) {
+  launch_floor_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      nullptr, nullptr, nullptr, nullptr, nullptr, 0, false);
+  return cudaGetLastError();
+}
+"""
 STREAM_SPEC = "blur:1,threshold:otsu,blobs,keypoints,faces,contours"
 STREAM_FRAMES, STREAM_SIZE = 32, "480x640"
 LIVE_FRAMES, LIVE_H, LIVE_W = 8, 240, 320
@@ -2862,11 +2893,58 @@ def fs_sin_inputs(rng, n=FS_SWEEP):
     return wide, orb
 
 
-def phase_freestanding_kernels(chk, rng, dev):
-    """K21 against its plain versions, bit for bit: 1 M (y, x) pairs and 1 M
-    sine inputs on the card; the loop-end cases and the largest inputs inside
-    the bound against the plain version on the CPU (its loops test on the host)."""
+def fs_moment_pairs(rng, n=FS_SWEEP):
+    """int32 (m01, m10): every pair of FS_MOMENT_EDGES (0/0, +-1, int32's ends,
+    odd values past 2^24), a small m01 against a large negative m10 (angles
+    near +-pi), ORB's moment range and uniform int32s (a quarter of their
+    angles put the cosine's input past pi, where its range reduction steps)."""
+    edge = np.array(FS_MOMENT_EDGES, np.int64)
+    ey, ex = (v.ravel() for v in np.meshgrid(edge, edge))
+    k = (n - ey.size) // 3
+    near_pi = (rng.integers(-3, 4, k), -rng.integers(1, 2**31, k))
+    orb = rng.integers(-ORB_MOMENT, ORB_MOMENT, (2, k))
+    uniform = rng.integers(-2**31, 2**31, (2, n - ey.size - 2 * k))
+    m01 = np.concatenate([ey, near_pi[0], orb[0], uniform[0]]).astype(np.int32)
+    m10 = np.concatenate([ex, near_pi[1], orb[1], uniform[1]]).astype(np.int32)
+    return torch.from_numpy(m01), torch.from_numpy(m10)
+
+
+def orient_threads():
+    """gs_fs_orient's threads a block (an element each), read from its source."""
+    text = (_build.CSRC_DIR / "freestanding.cu").read_text()
+    return int(re.search(r"constexpr int kOrientThreads = (\d+);", text).group(1))
+
+
+def check_orient(chk, dev, m01, m10, what, offsets=(0,)):
+    """``fs_orient`` on the card against ``fs_orient_plain`` on the CPU, as int32
+    bits, with the operands ``4 * lo`` bytes into their buffers for each lo."""
     F = K.freestanding
+    m01, m10 = m01.cpu().contiguous(), m10.cpu().contiguous()
+    want = F.fs_orient_plain(m01, m10)
+    on_card = m01.to(dev), m10.to(dev)
+    for lo in offsets:
+        got = F.fs_orient(on_card[0][lo:], on_card[1][lo:])
+        for name, a, b in zip(("angle", "sin", "cos"), got, want):
+            chk.same("freestanding", a.cpu().view(torch.int32), b[lo:].view(torch.int32),
+                     f"fs_orient {name}, {what} at +{4 * lo} B")
+    return want
+
+
+def phase_freestanding_kernels(chk, rng, dev):
+    """K21 against its plain versions, bit for bit: ``fs_orient`` on 1 M int32
+    moment pairs (the operands 0, 4 and 12 bytes into their buffers), 1 M (y, x) pairs
+    and 1 M sine inputs on the card; the loop-end cases and the largest inputs
+    inside the bound against the plain version on the CPU (its loops test on
+    the host)."""
+    F = K.freestanding
+    m01, m10 = fs_moment_pairs(rng)
+    angle, _, _ = check_orient(chk, dev, m01, m10, f"{m01.numel()} pairs",
+                               offsets=(0, 1, 3))
+    cast = m01.to(torch.float32).to(torch.int64) != m01.to(torch.int64)
+    orient_cases = {"pairs": m01.numel(), "moments_the_cast_rounds": int(cast.sum()),
+                    "angles_near_pi": int((angle.abs() > 3.14).sum()),
+                    "cosine_inputs_past_pi": int((angle + float(np.float32(FS_COS_OFFSET))
+                                                  > float(np.float32(3.141592))).sum())}
     y, x = (t.to(dev) for t in fs_atan2_inputs(rng))
     chk.same("freestanding", F.fs_atan2(y, x).view(torch.int32),
              F.fs_atan2_plain(y, x).view(torch.int32), f"atan2 sweep of {y.numel()}")
@@ -2892,7 +2970,7 @@ def phase_freestanding_kernels(chk, rng, dev):
              .view(torch.int32), F.fs_atan2_plain(specials[0], specials[1]).view(torch.int32),
              "atan2 NaN, inf and signed zeros")
     torch.cuda.synchronize()
-    emit("freestanding_kernels_vs_plain", ok=True, atan2_pairs=y.numel(),
+    emit("freestanding_kernels_vs_plain", ok=True, orient=orient_cases, atan2_pairs=y.numel(),
          sin_inputs=2 * (wide.numel() + orb.numel()), loop_end_cases=list(map(str, FS_LOOP_END)),
          inside_bound=list(FS_INSIDE),
          max_abs_err=chk.max_err["freestanding"], checks=chk.checks["freestanding"])
@@ -2929,9 +3007,10 @@ def phase_freestanding_path(chk, dev, orb_frames):
         for name, (fn, *args), plain, on_cpu in calls:
             fn(*args)  # any first-call upload happens outside the counted call
             out, counts, waits = _counted(fn, *args)
-            missing = [k for k in ("freestanding", *ORB_KERNELS) if counts[k] < 1]
-            if missing or waits:
-                raise AssertionError(f"freestanding {name}: launches {counts}, {waits} host waits")
+            missing = [k for k in ORB_KERNELS if counts[k] < 1]
+            if missing or waits or counts["freestanding"] != FS_PATH_LAUNCHES[name]:
+                raise AssertionError(f"freestanding {name}: launches {counts}, {waits} host waits, "
+                                     f"K21 expected {FS_PATH_LAUNCHES[name]}")
             tables, refs, cpus = ((t if name == "track" else (t,))
                                   for t in (out, plain(), on_cpu()))
             for got, ref, cpu in zip(tables, refs, cpus):
@@ -2943,15 +3022,23 @@ def phase_freestanding_path(chk, dev, orb_frames):
                             "host_waits": waits,
                             "keypoints": [int(t.n.sum()) for t in tables if hasattr(t, "angle")]}
         free_mode = gt.orb_extract(batch[:2], ORB_CAP, ORB_THR)
+        check_orient(chk, dev, *orb_call_moments(batch), "orb_extract's call")
+        profiles = {"freestanding": profile_calls(gt.orb_extract, batch, ORB_CAP, ORB_THR)}
     finally:
         libm32.use_freestanding(False)
+    profiles["fast"] = profile_calls(gt.orb_extract, batch, ORB_CAP, ORB_THR)
     angles_changed = int((gt.orb_extract(batch[:2], ORB_CAP, ORB_THR).angle.view(torch.int32)
                           != free_mode.angle.view(torch.int32)).sum())
     if angles_changed < ORB_CAP:
         raise AssertionError(f"freestanding mode changed only {angles_changed} angles")
     emit("freestanding_path", ok=True, frames=ORB_N, max_kps=ORB_CAP, track_kps=TRACK_KPS,
          mesh=list(SPARSE_MESH), calls=report, angles_changed_vs_fast_two_frames=angles_changed,
-         compared=["card vs plain path on the card (plain trig)", "card vs CPU, bit for bit"])
+         orb_extract_profile={mode: {k: p[k] for k in ("device_launches_a_call", "device_kernels",
+                                                       "device_busy_ms", "timed_ms", "idle_share",
+                                                       "device_ms_by_kernel")}
+                              for mode, p in profiles.items()},
+         compared=["card vs plain path on the card (plain trig)", "card vs CPU, bit for bit",
+                   "fs_orient at orb_extract's call vs fs_orient_plain on the CPU"])
     return launches
 
 
@@ -3126,11 +3213,12 @@ def phase_demos(dev):
     return {k: launches[k] + stream_counts[k] for k in KERNELS}, card_lines[0]
 
 
-def sass_instructions(kernels=("fs_atan2_kernel", "fs_sin_kernel")):
-    """{kernel: {opcode: count}} of the FP32-pipe and SFU instructions in each
-    named kernel's SASS (``cuobjdump -sass`` of the built library): every
-    instruction of its code once, the division's slow path and the NaN exit
-    included, so an upper count of one element's; None if ``cuobjdump`` fails."""
+def sass_instructions(kernels=("fs_orient_kernel", "fs_atan2_kernel", "fs_sin_kernel")):
+    """{kernel: {opcode: count}} of the FP32-pipe and conversion-rate instructions
+    in each named kernel's SASS (``cuobjdump -sass`` of the built library):
+    every instruction of its code once, the division's slow path and the NaN
+    exit included, so an upper count of one thread's; None if ``cuobjdump``
+    fails."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     try:
@@ -3147,7 +3235,7 @@ def sass_instructions(kernels=("fs_atan2_kernel", "fs_sin_kernel")):
                 counts[current] = {}
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if current and m and m.group(1) in FP32_PIPE_OPS + SFU_OPS:
+        if current and m and m.group(1) in FP32_PIPE_OPS + CONVERSION_OPS:
             counts[current][m.group(1)] = counts[current].get(m.group(1), 0) + 1
     return counts if all(k in counts for k in kernels) else None
 
@@ -3168,82 +3256,192 @@ def sine_steps(x):
     return steps
 
 
-def fs_ops(sass, n_atan2, sin_inputs):
-    """K21's operations by kind: each element's SASS instructions and, in the
-    sine, two (a compare and an add) a reduction step this data takes."""
+def fs_ops(sass, kernel, n, sin_inputs=()):
+    """``n`` elements of the K21 kernel ``kernel`` (a thread an element) by kind:
+    its SASS instructions an element and, in the sine, two (a compare and an
+    add) a reduction step the data ``sin_inputs`` takes."""
     if sass is None:
         return 0
-    fp32 = lambda k: sum(c for op, c in sass[k].items() if op in FP32_PIPE_OPS)  # noqa: E731
-    sfu = lambda k: sum(c for op, c in sass[k].items() if op in SFU_OPS)  # noqa: E731
-    n_sin = sum(a.numel() for a in sin_inputs)
+    fp32 = sum(c for op, c in sass[kernel].items() if op in FP32_PIPE_OPS)
+    conversion = sum(c for op, c in sass[kernel].items() if op in CONVERSION_OPS)
     steps = sum(sine_steps(a) for a in sin_inputs)
-    return {"fp32": fp32("fs_atan2_kernel") * n_atan2 + fp32("fs_sin_kernel") * n_sin + 2 * steps,
-            "conversion": sfu("fs_atan2_kernel") * n_atan2 + sfu("fs_sin_kernel") * n_sin}
+    return {"fp32": fp32 * n + 2 * steps, "conversion": conversion * n}
+
+
+def launch_floor(dev):
+    """A function (blocks, threads) -> None that launches LAUNCH_FLOOR_SOURCE's
+    empty kernel on the current stream, built like the port's kernels into
+    ``_build/probe/``."""
+    d = _build.BUILD_DIR / "probe"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "launch_floor.cu").write_text(LAUNCH_FLOOR_SOURCE)
+    _build._run_all([_build.compile_command(d / "launch_floor.cu", d / "launch_floor.o")])
+    _build._run_all([_build.link_command([d / "launch_floor.o"], d / "liblaunch_floor.so")])
+    lib = ctypes.CDLL(str(d / "liblaunch_floor.so"))
+    lib.gs_launch_floor.argtypes = (ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p)
+    lib.gs_launch_floor.restype = ctypes.c_int
+
+    def launch(blocks, threads):
+        code = lib.gs_launch_floor(blocks, threads, torch.cuda.current_stream(dev).cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"the empty kernel did not launch: CUDA error {code}")
+    return launch
+
+
+def orb_call_moments(batch):
+    """K7's int32 moments at ``orb_extract(batch, ORB_CAP, ORB_THR)``'s call: its
+    keypoints clamped as it clamps them."""
+    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
+    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
+    return K.orb_moments(batch, sx, sy)
+
+
+def fs_composition(m01, m10):
+    """The orientation's trig as three K21 launches after two casts, as
+    ``orb_extract`` ran it before ``fs_orient``: the yardstick of the fused call."""
+    F = K.freestanding
+    angle = F.fs_atan2(m01.to(torch.float32), m10.to(torch.float32))
+    return angle, F.fs_sin(angle), F.fs_sin(angle, FS_COS_OFFSET)
+
+
+def orb_rates_in_turns(batch, rounds=3):
+    """``orb_extract`` frames/s on ``batch`` in the fast mode, the freestanding
+    mode and the freestanding mode with ``fs_composition`` in place of
+    ``fs_orient`` (the casts and three launches it replaced; the K21 wrappers
+    called directly, without ``libm32``'s dispatch around them), in turns (in
+    order, then reversed, ``rounds`` times); the last two first checked equal,
+    bit for bit."""
+    fused = libm32.fs_orient
+    modes = ("fast", "freestanding", "freestanding_three_launches")
+
+    def run(mode, fn):
+        libm32.use_freestanding(mode != "fast")
+        libm32.fs_orient = fs_composition if mode.endswith("three_launches") else fused
+        try:
+            return fn()
+        finally:
+            libm32.use_freestanding(False)
+            libm32.fs_orient = fused
+
+    tables = [run(mode, lambda: gt.orb_extract(batch, ORB_CAP, ORB_THR)) for mode in modes[1:]]
+    if not all(torch.equal(a, b) for a, b in zip(*map(_table_bits, tables))):
+        raise AssertionError("orb_extract with three K21 launches differs from fs_orient's")
+    rates = {mode: [] for mode in modes}
+    for _ in range(rounds):
+        for mode in (*modes, *reversed(modes)):
+            rates[mode].append(ORB_N / run(mode, lambda: timeit(gt.orb_extract, batch, ORB_CAP,
+                                                                 ORB_THR)))
+    return rates
+
+
+def in_turns(fns, measure, rounds=2):
+    """{name: [measure(fn), ...]}: the functions ``fns`` in order, then in
+    reverse, ``rounds`` times."""
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in [*fns, *reversed(fns)]:
+            out[name].append(measure(fns[name]))
+    return out
 
 
 def phase_freestanding_timing(card, orb_frames, stream_fps_line):
-    """K21 at ``orb_extract``'s call (its three launches on the 16 x 500
-    keypoints' moments) and on the 1 M sweep, by CUDA events and by device time,
-    beside its plain versions, its bound and ``torch.atan2`` (a yardstick: not
-    the same function); ``orb_extract`` frames/s in the fast and the
-    freestanding mode; the stream demo's rate."""
+    """K21 at ``orb_extract``'s call (``fs_orient`` on the 16 x 500 keypoints'
+    moments, in turns with the three-launch composition it replaced) and on
+    1 M moment pairs L2-warm and cold, by CUDA events and by device time, beside
+    its plain version, its bound, an empty kernel on the same grid (the launch
+    floor) and ``torch.atan2`` (a yardstick: not the same function); the kept
+    atan2 and sine entries on 1 M inputs; ``orb_extract`` frames/s in the fast
+    mode, the freestanding mode and the freestanding mode with the three
+    launches it replaced (``orb_rates_in_turns``); the stream demo's rate."""
     F = K.freestanding
     batch = orb_frames[0]
     dev = batch.device
-    kps = gt.orb_extract(batch, ORB_CAP, ORB_THR)
-    sx, sy = kps.x.clamp(15, ORB_W - 16), kps.y.clamp(15, ORB_H - 16)
-    m01, m10 = (m.to(torch.float32) for m in K.orb_moments(batch, sx, sy))
-    angle = F.fs_atan2(m01, m10)
-
-    def at_call():
-        a = F.fs_atan2(m01, m10)
-        return a, F.fs_sin(a), F.fs_sin(a, FS_COS_OFFSET)
-
-    def plain_at_call():
-        a = F.fs_atan2_plain(m01, m10)
-        return a, F.fs_sin_plain(a), F.fs_sin_plain(a, FS_COS_OFFSET)
-
-    sass = sass_instructions()
+    m01, m10 = orb_call_moments(batch)
     n = m01.numel()
-    entry = kernel_entry(timeit(at_call) * 1e3, timeit(plain_at_call, iters=3) * 1e3,
-                         12 * n + 8 * n + 8 * n,
-                         fs_ops(sass, n, (angle, angle + float(np.float32(FS_COS_OFFSET)))),
-                         timeit(torch.atan2, m01, m10) * 1e3,
-                         "torch.atan2 float32 on the same moments: a yardstick, not the same "
-                         "function (no GS_NO_STDLIB polynomial, no sine)")
-    entry.update(device_ms=device_ms(at_call, kernel="fs_"), launches_a_call=3, elements=n,
-                 sass_instructions=sass, bytes_counted="12 B an atan2 element, 8 B a sine's")
+    angle = F.fs_orient(m01, m10)[0]
+    threads = orient_threads()
+    sass = sass_instructions()
+    orient_ops = lambda a, k: fs_ops(sass, "fs_orient_kernel", k,  # noqa: E731
+                                     (a, a + float(np.float32(FS_COS_OFFSET))))
+    calls = {"composition": lambda: fs_composition(m01, m10),
+             "fs_orient": lambda: F.fs_orient(m01, m10)}
+    events = in_turns(calls, lambda fn: timeit(fn) * 1e3)
+    k21_device = in_turns(calls, lambda fn: device_ms(fn, kernel="fs_"))
+    all_device = in_turns(calls, device_ms)
+    floor_launch = launch_floor(dev)
+    blocks = -(-n // threads)
+    floor = device_ms(lambda: floor_launch(blocks, threads), kernel="launch_floor")
+    med = statistics.median
+    m01f, m10f = m01.to(torch.float32), m10.to(torch.float32)
+    entry = kernel_entry(med(events["fs_orient"]),
+                         timeit(F.fs_orient_plain, m01, m10, iters=3) * 1e3, 20 * n,
+                         orient_ops(angle, n), timeit(torch.atan2, m01f, m10f) * 1e3,
+                         "torch.atan2 float32 on the same moments cast to float32: a "
+                         "yardstick, not the same function (no GS_NO_STDLIB polynomial, no "
+                         "sine, no cast)")
+    entry.update(device_ms=med(k21_device["fs_orient"]), launches_a_call=1, elements=n,
+                 grid=[blocks, threads],
+                 launch_floor_device_ms=floor,
+                 composition_ms=med(events["composition"]),
+                 composition_device_ms=med(k21_device["composition"]),
+                 composition_device_ms_with_casts=med(all_device["composition"]),
+                 turns={"events_ms": events, "k21_device_ms": k21_device,
+                        "all_kernels_device_ms": all_device},
+                 sass_instructions=sass,
+                 bytes_counted="8 B read and 12 B written an element (int32 moments; angle, "
+                               "sine, cosine)")
     emit("kernel_time", card=card, kernel="freestanding", call="orb_extract", shape=[ORB_N, ORB_CAP],
          **entry)
     rng = np.random.default_rng(9)
+    y, x = (t.to(dev) for t in fs_moment_pairs(rng))
+    big = F.fs_orient(y, x)[0]
+    flush = torch.empty(FS_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    sweep_calls = {"composition": lambda: fs_composition(y, x),
+                   "fs_orient": lambda: F.fs_orient(y, x)}
+    cold_calls = {name: (lambda fn=fn: (flush.zero_(), fn())) for name, fn in sweep_calls.items()}
+    orient = kernel_entry(timeit(sweep_calls["fs_orient"]) * 1e3,
+                          timeit(F.fs_orient_plain, y, x, iters=3) * 1e3, 20 * y.numel(),
+                          orient_ops(big, y.numel()), None)
+    orient.update(warm_device_ms=in_turns(sweep_calls, lambda fn: device_ms(fn, kernel="fs_")),
+                  cold_device_ms=in_turns(cold_calls, lambda fn: device_ms(fn, kernel="fs_")),
+                  elements=y.numel(), cold=f"{FS_FLUSH_BYTES} bytes written before each call")
+    for key in ("warm_device_ms", "cold_device_ms"):
+        orient[f"{key}_median"] = {name: med(v) for name, v in orient[key].items()}
+    orient["device_ms"] = orient["warm_device_ms_median"]["fs_orient"]
+    emit("kernel_time", card=card, kernel="freestanding", call="orient sweep", shape=[y.numel()],
+         **orient)
     y, x = (t.to(dev) for t in fs_atan2_inputs(rng))
     wide = fs_sin_inputs(rng)[0].to(dev)
-    sweep = {}
+    sweep = {"orient": orient}
     for name, fn, plain, lib, nbytes, ops in (
             ("atan2", lambda: F.fs_atan2(y, x), lambda: F.fs_atan2_plain(y, x),
-             lambda: torch.atan2(y, x), 12 * y.numel(), fs_ops(sass, y.numel(), ())),
+             lambda: torch.atan2(y, x), 12 * y.numel(), fs_ops(sass, "fs_atan2_kernel", y.numel())),
             ("sin", lambda: F.fs_sin(wide), lambda: F.fs_sin_plain(wide),
-             lambda: torch.sin(wide), 8 * wide.numel(), fs_ops(sass, 0, (wide,)))):
+             lambda: torch.sin(wide), 8 * wide.numel(),
+             fs_ops(sass, "fs_sin_kernel", wide.numel(), (wide,)))):
         e = kernel_entry(timeit(fn) * 1e3, timeit(plain, iters=3) * 1e3, nbytes, ops,
                          timeit(lib) * 1e3, f"torch.{name} float32 (a yardstick)")
         e.update(device_ms=device_ms(fn, kernel="fs_"), elements=y.numel())
         sweep[name] = e
         emit("kernel_time", card=card, kernel="freestanding", call=f"{name} sweep",
              shape=[y.numel()], **e)
-    rates = {}
-    for mode in ("fast", "freestanding"):
-        libm32.use_freestanding(mode == "freestanding")
-        try:
-            rates[mode] = ORB_N / timeit(gt.orb_extract, batch, ORB_CAP, ORB_THR)
-        finally:
-            libm32.use_freestanding(False)
-    emit("freestanding_timing", card=card, orb_extract_frames_per_sec=rates,
+    rates = orb_rates_in_turns(batch)
+    emit("freestanding_timing", card=card,
+         orb_extract_frames_per_sec={mode: statistics.median(v) for mode, v in rates.items()},
+         orb_extract_frames_per_sec_turns=rates,
          k21_at_orb_extract_events_ms=entry["ms"], k21_at_orb_extract_device_ms=entry["device_ms"],
-         k21_sweep={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                          "library_ms")} for k, v in sweep.items()},
+         composition_at_orb_extract_events_ms=entry["composition_ms"],
+         composition_at_orb_extract_device_ms=entry["composition_device_ms"],
+         launch_floor_device_ms=floor, bound_ms=entry["bound_ms"],
+         k21_sweep={k: {f: v.get(f) for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                              "library_ms", "cold_device_ms_median",
+                                              "warm_device_ms_median")}
+                    for k, v in sweep.items()},
          stream_demo=stream_fps_line,
-         windows="median of 3 windows of 20 calls after 2 warm-up calls (plain: 3 calls); "
-                 "device: torch.profiler over 20 calls")
+         windows="events: median of 3 windows of 20 calls after 2 warm-up calls (plain: 3 "
+                 "calls); device: torch.profiler over 20 calls; fused and composition in turns "
+                 "(in order, then reversed, twice); orb_extract rates: the three modes in "
+                 "turns (in order, then reversed, three times), medians")
     return {"freestanding": entry}
 
 

@@ -4,7 +4,7 @@
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
     python3 chip_sweep.py [--source {preproc,stencil3,bandwidth,resize,fast,otsu,patches,ccl,
-                                     integral,warp,template,contour}]
+                                     integral,warp,template,contour,freestanding}]
                           [--parent DIR ...] [--only NAME ...]
 
 It builds ``grayskull_tpu_torch/csrc/<source>.cu`` as it is and in variants
@@ -158,6 +158,21 @@ probe of the card's dependent-load latency from shared memory and through L1
 (one thread chasing a chain of indices), the latency behind K20's bound
 (``chip_smoke.SHARED_LOAD_LATENCY_CYCLES``).
 
+``--source freestanding``: K21's orientation entry (``gs_fs_orient``) with
+blocks of 64, 128 and 256 threads (``kOrientThreads``) and 1, 2 or 4
+neighbouring elements a thread (``ORIENT_ITEMS`` in place of the committed
+kernel's one), with vector loads and stores where aligned or scalar ones
+always (``_scalar``), at
+``orb_extract``'s call (the 16 x 500 keypoints' int32 moments on lena, as
+``chip_smoke.orb_call_moments``) and on 1 M seeded moment pairs
+(``chip_smoke.fs_moment_pairs``); each beside the three-launch composition
+it replaced (the casts, ``gs_fs_atan2``, ``gs_fs_sin`` twice:
+``composition_*``), every variant held bit for bit to ``fs_orient_plain``.
+A ``--parent`` tree without ``gs_fs_orient`` runs that composition with its
+own kernels in its place.  Device time too, and an empty kernel's (the
+launch floor, ``chip_smoke.LAUNCH_FLOOR_SOURCE``) on each grid of the call
+(its ``launch_floor`` line).
+
 Each phase prints one JSON line; the last line is ``{"ok": true, ...}``.
 """
 
@@ -171,16 +186,17 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from chip_smoke import (CONTOUR_BLOBS, CONTOUR_CAP, DENSE_C, DENSE_N, DENSE_R, FACES_H, FACES_N,
-                        FACES_W, FILTER_TAPS, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
+                        FACES_W, FILTER_TAPS, FS_COS_OFFSET, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
                         ORB_CAP, ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_CAP, SCAN_N, SCAN_PAGE,
                         WARP_QUADS,
                         WithEntries, _aruco, alternate_windows, brief_args, card_line, device_ms,
-                        older_entries,
-                        document_batch, lena_batch, match_batch, receipt_batch, spiral,
-                        track_levels, twelve_blobs)
+                        fs_composition, fs_moment_pairs, launch_floor, older_entries,
+                        document_batch, lena_batch, match_batch, orb_call_moments,
+                        receipt_batch, spiral, track_levels, twelve_blobs)
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.kernels import _build
@@ -1951,10 +1967,175 @@ def contour_cases(dev):
     return cases, {}
 
 
+# K21's orientation with kOrientItems neighbouring elements a thread, in place
+# of the committed kernel (a thread an element) and its entry's launch
+ORIENT_ITEMS = r"""// kOrientItems neighbouring elements a thread; one vector load or store an
+// array where vector is set (every pointer aligned to kOrientItems elements).
+constexpr int kOrientItems = @ITEMS@;
+
+__device__ __forceinline__ void load_items(const int* __restrict__ p, size_t first, size_t n,
+                                           bool vector, int (&v)[kOrientItems]) {
+  if (vector && first + kOrientItems <= n) {
+    if constexpr (kOrientItems == 4) {
+      const int4 t = *reinterpret_cast<const int4*>(p + first);
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+      return;
+    } else if constexpr (kOrientItems == 2) {
+      const int2 t = *reinterpret_cast<const int2*>(p + first);
+      v[0] = t.x;
+      v[1] = t.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kOrientItems; ++k) v[k] = first + k < n ? p[first + k] : 0;
+}
+
+__device__ __forceinline__ void store_items(float* __restrict__ p, size_t first, size_t n,
+                                            bool vector, const float (&v)[kOrientItems]) {
+  if (vector && first + kOrientItems <= n) {
+    if constexpr (kOrientItems == 4) {
+      *reinterpret_cast<float4*>(p + first) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    } else if constexpr (kOrientItems == 2) {
+      *reinterpret_cast<float2*>(p + first) = make_float2(v[0], v[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kOrientItems; ++k) {
+    if (first + k < n) p[first + k] = v[k];
+  }
+}
+
+__global__ void __launch_bounds__(kOrientThreads)
+    fs_orient_kernel(const int* __restrict__ m01, const int* __restrict__ m10,
+                     float* __restrict__ angle, float* __restrict__ sin_out,
+                     float* __restrict__ cos_out, size_t n, bool vector) {
+  const size_t first =
+      (static_cast<size_t>(blockIdx.x) * kOrientThreads + threadIdx.x) * kOrientItems;
+  if (first >= n) return;
+  int y[kOrientItems], x[kOrientItems];
+  load_items(m01, first, n, vector, y);
+  load_items(m10, first, n, vector, x);
+  float a[kOrientItems], s[kOrientItems], c[kOrientItems];
+#pragma unroll
+  for (int k = 0; k < kOrientItems; ++k) {
+    a[k] = fs_atan2(__int2float_rn(y[k]), __int2float_rn(x[k]));
+    s[k] = fs_sin(a[k]);
+    c[k] = fs_sin(__fadd_rn(a[k], kCosOffset));
+  }
+  store_items(angle, first, n, vector, a);
+  store_items(sin_out, first, n, vector, s);
+  store_items(cos_out, first, n, vector, c);
+}
+
+"""
+ORIENT_ITEMS_ENTRY = r"""int gs_fs_orient(const void* m01, const void* m10, void* angle, void* sin_out,
+                 void* cos_out, size_t n, void* stream) {
+  unsigned blocks;
+  if (!blocks_for(n, static_cast<size_t>(kOrientThreads) * kOrientItems, &blocks)) {
+    return cudaErrorInvalidConfiguration;
+  }
+  const uintptr_t all = reinterpret_cast<uintptr_t>(m01) | reinterpret_cast<uintptr_t>(m10) |
+                        reinterpret_cast<uintptr_t>(angle) | reinterpret_cast<uintptr_t>(sin_out) |
+                        reinterpret_cast<uintptr_t>(cos_out);
+  const bool vector = @VECTOR@;
+  fs_orient_kernel<<<blocks, kOrientThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(m01), static_cast<const int*>(m10), static_cast<float*>(angle),
+      static_cast<float*>(sin_out), static_cast<float*>(cos_out), n, vector);
+  return cudaGetLastError();
+}
+
+"""
+
+
+def orient_items(items, vector=True):
+    """The edit that gives each gs_fs_orient thread ``items`` elements, with
+    vector loads and stores where aligned (``vector``) or scalar ones always."""
+    def make(text):
+        text = replace_span(text, "// A thread an element: angle", "bool blocks_for(",
+                            ORIENT_ITEMS.replace("@ITEMS@", str(items)))
+        return replace_span(text, "int gs_fs_orient(", "// y, x, out: n float32 each",
+                            ORIENT_ITEMS_ENTRY.replace(
+                                "@VECTOR@", "all % (sizeof(float) * kOrientItems) == 0"
+                                if vector else "false"))
+    return make
+
+
+FREESTANDING_VARIANTS = {"committed": lambda s: s}  # 128 threads, an element each
+for _threads in (64, 128, 256):
+    _block = const("kOrientThreads", _threads)
+    if _threads != 128:
+        FREESTANDING_VARIANTS[f"t{_threads}_i1"] = _block
+    for _items in (2, 4):
+        FREESTANDING_VARIANTS[f"t{_threads}_i{_items}"] = chain(_block, orient_items(_items))
+        FREESTANDING_VARIANTS[f"t{_threads}_i{_items}_scalar"] = chain(
+            _block, orient_items(_items, vector=False))
+
+
+class _Int32s:
+    """``n`` int32 on the card at ``ptr``, for ``torch.as_tensor``."""
+
+    def __init__(self, ptr, n):
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": "<i4", "data": (ptr, False),
+                                         "strides": None, "version": 2}
+
+
+def three_launch_orient(lib):
+    """A stand-in ``gs_fs_orient`` for a tree without it: the two casts of the
+    moments, then its ``gs_fs_atan2`` and ``gs_fs_sin`` twice, as its
+    ``orb_extract`` ran them."""
+    offset = float(np.float32(FS_COS_OFFSET))
+
+    def orient(m01, m10, angle, sin_out, cos_out, n, stream):
+        y, x = (torch.as_tensor(_Int32s(p, n), device="cuda").to(torch.float32) for p in (m01, m10))
+        codes = (lib.gs_fs_atan2(y.data_ptr(), x.data_ptr(), angle, n, stream),
+                 lib.gs_fs_sin(angle, sin_out, n, -0.0, stream),
+                 lib.gs_fs_sin(angle, cos_out, n, offset, stream))
+        return next((c for c in codes if c), 0)
+    return orient
+
+
+def freestanding_cases(dev):
+    """K21's orientation at ``orb_extract``'s call (16 x 500 keypoints on lena)
+    and on 1 M seeded moment pairs, and the three-launch composition on each;
+    outputs as int32 bits."""
+    F = K.freestanding
+    batch = torch.from_numpy(lena_batch(ORB_N, ORB_H, ORB_W, roll=5)).to(dev)
+    bits = lambda ts: tuple(t.view(torch.int32) for t in ts)  # noqa: E731
+    cases = {}
+    for label, (m01, m10) in (("call", orb_call_moments(batch)),
+                              ("1M", tuple(t.to(dev) for t in fs_moment_pairs(
+                                  np.random.default_rng(9))))):
+        plain = lambda a=(m01, m10): bits(F.fs_orient_plain(*a))  # noqa: E731
+        cases[f"orient_{label}"] = (m01.shape, lambda a=(m01, m10): bits(F.fs_orient(*a)), plain)
+        cases[f"composition_{label}"] = (m01.shape, lambda a=(m01, m10): bits(fs_composition(*a)),
+                                         plain)
+    return cases, {}
+
+
+def launch_floors(dev):
+    """Device ms of an empty kernel (``chip_smoke.LAUNCH_FLOOR_SOURCE``) on each
+    grid ``gs_fs_orient`` could take at ``orb_extract``'s 8,000 elements."""
+    launch = launch_floor(dev)
+    floors = {}
+    for threads in (64, 128, 256):
+        for items in (1, 2, 4):
+            blocks = -(-ORB_N * ORB_CAP // (threads * items))
+            floors[f"t{threads}_i{items}"] = {
+                "grid": [blocks, threads],
+                "device_ms": device_ms(lambda: launch(blocks, threads), kernel="launch_floor")}
+    return {"elements": ORB_N * ORB_CAP, "floors": floors}
+
+
 # sources whose kernels are short enough that back-to-back calls may time the
 # host: their variants are also timed by the profiler's device events
 DEVICE_TIMED = ("fast", "otsu", "bandwidth", "patches", "ccl", "integral", "warp", "template",
-                "contour")
+                "contour", "freestanding")
 
 SOURCES = {
     "preproc": ("preproc.cu", ("gs_blur_hist", "gs_blur_hist_window", "gs_threshold_sobel",
@@ -1979,6 +2160,8 @@ SOURCES = {
                  r"match_template|Used"),
     "contour": ("contour.cu", ("gs_contour",), CONTOUR_VARIANTS, {}, contour_cases,
                 r"contour|Used"),
+    "freestanding": ("freestanding.cu", ("gs_fs_orient", "gs_fs_atan2", "gs_fs_sin"),
+                     FREESTANDING_VARIANTS, {}, freestanding_cases, r"fs_|Used"),
 }
 # (kernel, library call) pairs that every variant is also timed against in
 # chip_smoke.alternate_windows, variants in order and then in reverse
@@ -2038,11 +2221,15 @@ def build_variants(source, entries, variants, parent):
         subprocess.run(_build.link_command([d / f"{stem}.o"], d / f"lib{stem}.so"), check=True)
         lib = ctypes.CDLL(str(d / f"lib{stem}.so"))
         for entry in entries:
-            fn = getattr(lib, entry)
+            fn = getattr(lib, entry, None)
+            if fn is None and entry == "gs_fs_orient":  # a tree before it: three_launch_orient
+                continue
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
         if source == "contour.cu":
             overrides[name] = older_entries(lib, sources[name])
+        if source == "freestanding.cu" and not hasattr(lib, "gs_fs_orient"):
+            overrides[name] = {"gs_fs_orient": three_launch_orient(lib)}
         libs[name] = lib
     return libs, regs, failed, overrides
 
@@ -2179,7 +2366,8 @@ def main():
                 on_device[f"{kernel}:{label}"] = names
         emit("library_kernels", card=card, device_ms_a_call_by_name=on_device,
              source="torch.profiler device events over 10 calls after a warm-up call")
-    probes = {"otsu": ("fadd_latency", fadd_latency), "contour": ("load_latency", load_latency)}
+    probes = {"otsu": ("fadd_latency", fadd_latency), "contour": ("load_latency", load_latency),
+              "freestanding": ("launch_floor", launch_floors)}
     if args.source in probes:
         phase, probe = probes[args.source]
         emit(phase, card=card, **probe(dev),

@@ -24,9 +24,10 @@
   instruction)
 * :mod:`.contour` — K20 ``contour`` (the Moore walks of a call, a warp each and
   side by side, one ballot a step)
-* :mod:`.freestanding` — K21 ``fs_atan2`` and ``fs_sin`` (the reference's
-  ``GS_NO_STDLIB`` trig of the ``freestanding`` mode, a thread an element,
-  each element's range reduction in its own loop)
+* :mod:`.freestanding` — K21 ``fs_orient``, ``fs_atan2`` and ``fs_sin`` (the
+  reference's ``GS_NO_STDLIB`` trig of the ``freestanding`` mode: ORB's angle,
+  sine and cosine from int32 moments in one launch; each element's range
+  reduction in its own loop)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -51,7 +52,8 @@ from .bandwidth import copy, copy_plain, triad, triad_plain  # noqa: F401
 from .ccl import ccl, ccl_plain  # noqa: F401
 from .contour import contour, contour_plain  # noqa: F401
 from .fast import fast, fast_plain  # noqa: F401
-from .freestanding import fs_atan2, fs_atan2_plain, fs_sin, fs_sin_plain  # noqa: F401
+from .freestanding import (fs_atan2, fs_atan2_plain, fs_orient, fs_orient_plain,  # noqa: F401
+                           fs_sin, fs_sin_plain)
 from .integral import integral, integral_plain  # noqa: F401
 from .lbp import lbp_eval_scale, lbp_eval_scale_plain  # noqa: F401
 from .otsu import otsu, otsu_plain  # noqa: F401
@@ -88,6 +90,8 @@ __all__ = [
     "frame_histograms",
     "fs_atan2",
     "fs_atan2_plain",
+    "fs_orient",
+    "fs_orient_plain",
     "fs_sin",
     "fs_sin_plain",
     "integral",

@@ -67,6 +67,7 @@ _SIGNATURES = {
     "gs_match_template": (_PTR, _PTR, _PTR, *(_INT,) * 5, _PTR),
     "gs_contour": (_PTR, _PTR, *(_INT,) * 3, _PTR, _INT, _INT, *(_PTR,) * 6, *(_INT,) * 3,
                    *(_PTR,) * 5, _PTR),
+    "gs_fs_orient": (*(_PTR,) * 5, _SIZE, _PTR),
     "gs_fs_atan2": (_PTR, _PTR, _PTR, _SIZE, _PTR),
     "gs_fs_sin": (_PTR, _PTR, _SIZE, _FLOAT, _PTR),
 }

@@ -16,7 +16,8 @@ bits depend on the libm it was linked against.  Three modes, as in
 * **freestanding**: the reference's ``GS_NO_STDLIB`` polynomials (the octant
   ``atan2`` and the range-reduced quintic sine, grayskull.h:70-88), the math of
   its nostdlib build.  A CUDA tensor runs K21 (``kernels.freestanding``: a
-  thread an element, one launch a call, no host wait), a CPU tensor its plain
+  thread an element, one launch a call, no host wait; ORB's angle, sine and
+  cosine, :func:`orientation_trig`, in one launch), a CPU tensor its plain
   version; both are bit-identical to the JAX package's freestanding mode on
   the CPU, but for two inputs JAX never returns from (the sine's ``±inf``, and
   every ``|x| >= 2^20``, give NaN here) and NaN payloads (every NaN is
@@ -35,13 +36,13 @@ import ctypes.util
 import numpy as np
 import torch
 
-from .kernels.freestanding import fs_atan2, fs_atan2_plain, fs_sin, fs_sin_plain
+from .kernels.freestanding import (COS_OFFSET, fs_atan2, fs_atan2_plain, fs_orient,
+                                   fs_orient_plain, fs_sin, fs_sin_plain)
 
-__all__ = ["atan2f", "cosf_like_reference", "exact_mode", "sinf", "trig_mode",
-           "use_exact_host_libm", "use_freestanding"]
+__all__ = ["atan2f", "cosf_like_reference", "exact_mode", "orientation_trig", "sinf",
+           "trig_mode", "use_exact_host_libm", "use_freestanding"]
 
 _MODE = "fast"  # "fast" | "exact_host" | "freestanding"
-_COS_OFFSET = 1.57079  # the reference's cosine is gs_sin(angle + 1.57079f)
 
 
 def exact_mode() -> bool:
@@ -127,8 +128,19 @@ def cosf_like_reference(x, force_reference: bool = False) -> torch.Tensor:
     x = _as_f32(x)
     if _MODE == "freestanding":  # K21 rounds the add in: one launch
         if force_reference:
-            return fs_sin_plain(x, _COS_OFFSET)
-        return fs_sin(x.contiguous(), _COS_OFFSET)
+            return fs_sin_plain(x, COS_OFFSET)
+        return fs_sin(x.contiguous(), COS_OFFSET)
     # the float32 constant as an exact Python float: the add rounds once to float32,
     # and no tensor is copied to the device (a host sync)
-    return sinf(x + float(np.float32(_COS_OFFSET)))
+    return sinf(x + float(np.float32(COS_OFFSET)))
+
+
+def orientation_trig(m01: torch.Tensor, m10: torch.Tensor, force_reference: bool = False):
+    """ORB's trig from each keypoint's int32 moments: (angle, sin, cos), the angle
+    ``atan2f(m01, m10)`` of the moments as float32, then ``sinf(angle)`` and
+    ``cosf_like_reference(angle)``, by the current mode.  In the freestanding
+    mode one K21 launch computes all three (``fs_orient``)."""
+    if _MODE == "freestanding":
+        return fs_orient_plain(m01, m10) if force_reference else fs_orient(m01, m10)
+    angle = atan2f(m01.to(torch.float32), m10.to(torch.float32), force_reference)
+    return angle, sinf(angle, force_reference), cosf_like_reference(angle, force_reference)

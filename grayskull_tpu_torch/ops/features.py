@@ -12,8 +12,9 @@
   stable sort (``_select_candidates_sort``).
 * Orientation and rBRIEF: K7 and K8 (``kernels.patches``) read each keypoint's
   window from the frame; ``atan2f``, ``sinf`` and the reference's
-  ``sinf(a + 1.57079f)`` cosine run between them in ``libm32`` (K21 in the
-  ``freestanding`` mode).
+  ``sinf(a + 1.57079f)`` cosine run between them in
+  ``libm32.orientation_trig`` (in the ``freestanding`` mode one K21 launch
+  from K7's int32 moments).
 * Matching: XOR and a SWAR popcount over int64 words, then the reference's
   best / second-best bookkeeping as masked reductions (plain PyTorch, as the
   JAX package leaves it to XLA).
@@ -35,7 +36,7 @@ from ..kernels.fast import fast_plain
 from ..kernels.integral import u32_to_int64
 from ..kernels.patches import (BRIEF_PATTERN, orb_brief, orb_brief_plain, orb_moments,
                                orb_moments_plain)
-from ..libm32 import atan2f, cosf_like_reference, sinf
+from ..libm32 import atan2f, cosf_like_reference, orientation_trig, sinf
 
 __all__ = ["BRIEF_PATTERN", "brief_descriptor", "compute_orientation", "fast", "fast_scoremap",
            "hamming_distance", "match_orb", "orb_extract"]
@@ -177,9 +178,8 @@ def orb_extract(img, max_kps: int, threshold, limit=None,
     sy = torch.clamp(y, ORB_RADIUS, h - ORB_RADIUS - 1)
     m01, m10 = moments(frames, sx, sy, ORB_RADIUS)
     # force_reference also keeps the freestanding trig plain (not K21)
-    angle = atan2f(m01.to(torch.float32), m10.to(torch.float32), force_reference)
-    desc = brief(frames, sx, sy, sinf(angle, force_reference),
-                 cosf_like_reference(angle, force_reference))
+    angle, sin, cos = orientation_trig(m01, m10, force_reference)
+    desc = brief(frames, sx, sy, sin, cos)
     ok = torch.arange(cap, device=frames.device)[None, :] < n[:, None]
     angle = torch.where(ok, angle, 0.0)
     desc = torch.where(ok[..., None], desc.view(torch.int32), 0).view(torch.uint32)

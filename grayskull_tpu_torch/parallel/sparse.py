@@ -64,7 +64,7 @@ from ..kernels.otsu import otsu, otsu_plain
 from ..kernels.patches import orb_brief, orb_brief_plain, orb_moments, orb_moments_plain
 from ..kernels.preproc import blur_hist_window, blur_hist_window_plain
 from ..kernels.warp import quad_warp_rows, quad_warp_rows_plain
-from ..libm32 import atan2f, cosf_like_reference, sinf
+from ..libm32 import orientation_trig
 from ..ops.blobs import _Segments
 from ..ops.features import (_MAX_CANDIDATES, ORB_RADIUS, _best_matches, _emit, _rank_scatter,
                             _select_candidates)
@@ -529,8 +529,7 @@ def orb_extract_spatial(img, mesh: Mesh, max_kps: int, threshold, space_axis: st
         a, b = moments(slab, xs, ys, ORB_RADIUS)
         m01 = torch.where(own, a.to(dev0, non_blocking=True), m01)
         m10 = torch.where(own, b.to(dev0, non_blocking=True), m10)
-    angle = atan2f(m01.to(torch.float32), m10.to(torch.float32), not use)
-    sin, cos = sinf(angle, not use), cosf_like_reference(angle, not use)
+    angle, sin, cos = orientation_trig(m01, m10, not use)
     desc = torch.zeros((1, cap, 8), dtype=torch.int32, device=dev0)
     for slab, own, (xs, ys) in zip(slabs, owned, coords):
         dev = slab.device

@@ -1310,6 +1310,41 @@ def test_freestanding_k21_matches_plain_on_card(cuda_device):
     assert np.isnan(F.fs_sin(torch.tensor([np.inf], device=cuda_device)).item())
 
 
+def _fs_moment_cases(rng):
+    """int32 (m01, m10): every pair of int32's ends, 0, +-1 and odd values past
+    2^24, small m01 against large negative m10 (angles near +-pi) and uniform
+    int32s; 200,011 pairs, so the last thread's elements are a tail."""
+    edge = np.array([0, 1, -1, -2**31, 2**31 - 1, -2**31 + 1, 2**24 + 1, -(2**24 + 1),
+                     2**25 + 3], np.int64)
+    ey, ex = (v.ravel() for v in np.meshgrid(edge, edge))
+    near_pi = (rng.integers(-3, 4, 50_000), -rng.integers(1, 2**31, 50_000))
+    uniform = rng.integers(-2**31, 2**31, (2, 200_011 - ey.size - 50_000))
+    return (np.concatenate([ey, near_pi[0], uniform[0]]).astype(np.int32),
+            np.concatenate([ex, near_pi[1], uniform[1]]).astype(np.int32))
+
+
+@pytest.mark.cuda
+def test_freestanding_fs_orient_matches_plain_on_card(cuda_device):
+    """K21's fused orientation entry against its plain version (on the CPU),
+    bit for bit: one launch a call, whatever the alignment of the operands."""
+    from grayskull_tpu_torch.kernels import freestanding as F
+
+    ys, xs = _fs_moment_cases(np.random.default_rng(82))
+    y, x = torch.from_numpy(ys), torch.from_numpy(xs)
+    want = [t.view(torch.int32) for t in F.fs_orient_plain(y, x)]
+    yd, xd = y.to(cuda_device), x.to(cuda_device)
+    for lo in (0, 1, 2, 3):  # operands 0, 4, 8 and 12 bytes past a 16-byte boundary
+        K.reset_launch_counts()
+        got = F.fs_orient(yd[lo:], xd[lo:])
+        assert K.launch_counts()["freestanding"] == 1
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu().view(torch.int32), b[lo:])
+    got = F.fs_orient(yd[:199_997].view(-1, 7), xd[:199_997].view(-1, 7))  # 2-D, 7 x 28,571
+    for a, b in zip(got, want):
+        assert a.shape == (28_571, 7)
+        assert torch.equal(a.cpu().view(torch.int32), b[:199_997].view(-1, 7))
+
+
 def _host_waits(fn, *args):
     torch.cuda.synchronize()
     import warnings
@@ -1326,9 +1361,9 @@ def _host_waits(fn, *args):
 
 @pytest.mark.cuda
 def test_freestanding_orb_on_card_matches_cpu(cuda_device):
-    """The ORB path in the freestanding mode: K21 once for atan2f and once each
-    for the sine and the reference's cosine, no host wait, and tables equal to
-    the CPU's bit for bit (and to the plain path on the card)."""
+    """The ORB path in the freestanding mode: K21 once, for the angle, the sine
+    and the reference's cosine together (``fs_orient``), no host wait, and
+    tables equal to the CPU's bit for bit (and to the plain path on the card)."""
     lena = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/lena.pgm")
     frames = torch.from_numpy(np.stack([lena, np.roll(lena, 9, axis=1)])).to(cuda_device)
     gt.orb_extract(frames, 300, 20)  # K8's tables reach the card: a wait, once
@@ -1336,7 +1371,7 @@ def test_freestanding_orb_on_card_matches_cpu(cuda_device):
     try:
         K.reset_launch_counts()
         on_card, waits = _host_waits(gt.orb_extract, frames, 300, 20)
-        assert waits == 0 and K.launch_counts()["freestanding"] == 3
+        assert waits == 0 and K.launch_counts()["freestanding"] == 1
         on_cpu = gt.orb_extract(frames.cpu(), 300, 20)
         plain = gt.orb_extract(frames, 300, 20, force_reference=True)
         tk, sk, m = gt.track(frames[0, :100, :120], frames[1], max_kps=400)

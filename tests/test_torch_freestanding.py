@@ -100,6 +100,84 @@ def sin_inputs(rng):
     ).astype(np.float32)
 
 
+def moment_pairs(rng, n=6000):
+    """int32 (m01, m10): every pair of int32's ends, 0, +-1 and odd values past
+    2^24 (where the cast to float32 rounds), a small m01 against a large
+    negative m10 (angles near +-pi), ORB's moment range and uniform int32s."""
+    edge = np.array([0, 1, -1, 2, -2, -2**31, 2**31 - 1, -2**31 + 1, 2**24 + 1, -(2**24 + 1),
+                     2**25 + 3, 2**30 + 7], np.int64)
+    ey, ex = (v.ravel() for v in np.meshgrid(edge, edge))
+    k = (n - ey.size) // 3
+    near_pi = (rng.integers(-3, 4, k), -rng.integers(1, 2**31, k))
+    orb = rng.integers(-ORB_MOMENT, ORB_MOMENT, (2, k))
+    uniform = rng.integers(-2**31, 2**31, (2, n - ey.size - 2 * k))
+    m01 = np.concatenate([ey, near_pi[0], orb[0], uniform[0]]).astype(np.int32)
+    m10 = np.concatenate([ex, near_pi[1], orb[1], uniform[1]]).astype(np.int32)
+    return m01, m10
+
+
+def test_fs_orient_vs_jax():
+    """K21's orientation entry (its plain version on the CPU) against JAX's
+    ``_freestanding_atan2`` of the moments cast to float32, then
+    ``_freestanding_sin`` of the angle and of the angle plus 1.57079, bit for
+    bit, tolerance 0; the moments past 2^24 round in the cast on both sides."""
+    m01, m10 = moment_pairs(np.random.default_rng(25))
+    assert (np.abs(m01.astype(np.int64)) > 2**24).sum() > 1000
+    assert (m01.astype(np.float32).astype(np.int64) != m01).sum() > 1000  # the cast rounds
+    got = F.fs_orient(torch.from_numpy(m01), torch.from_numpy(m10))
+    plain = F.fs_orient_plain(torch.from_numpy(m01), torch.from_numpy(m10))
+    angle = jax_libm32._freestanding_atan2(jnp.asarray(m01.astype(np.float32)),
+                                           jnp.asarray(m10.astype(np.float32)))
+    ref = (angle, jax_libm32._freestanding_sin(angle),
+           jax_libm32._freestanding_sin(angle + np.float32(1.57079)))
+    for name, a, b, r in zip(("angle", "sin", "cos"), got, plain, ref):
+        assert a.shape == m01.shape and not torch.isnan(a).any(), name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+        _same_floats(a, r, name)
+    assert (np.abs(got[0].numpy()) > 3.14).sum() > 100  # angles near +-pi
+    # cosine inputs past pi: its range reduction steps once
+    assert (got[0].numpy() + np.float32(1.57079) > np.float32(3.141592)).sum() > 1000
+
+
+@pytest.mark.parametrize("mode", ["fast", "exact_host", "freestanding"])
+@pytest.mark.parametrize("force_reference", [False, True])
+def test_orientation_trig_is_the_composition(mode, force_reference):
+    """``orientation_trig`` gives in each mode exactly what ``atan2f`` of the
+    float32 moments, ``sinf`` and ``cosf_like_reference`` give."""
+    m01, m10 = (torch.from_numpy(v) for v in moment_pairs(np.random.default_rng(26), 1500))
+    m01, m10 = m01.view(3, 500), m10.view(3, 500)
+    {"fast": libm32.use_freestanding, "exact_host": libm32.use_exact_host_libm,
+     "freestanding": libm32.use_freestanding}[mode](mode != "fast")
+    try:
+        assert libm32.trig_mode() == mode
+        got = libm32.orientation_trig(m01, m10, force_reference)
+        angle = libm32.atan2f(m01.to(torch.float32), m10.to(torch.float32), force_reference)
+        want = (angle, libm32.sinf(angle, force_reference),
+                libm32.cosf_like_reference(angle, force_reference))
+    finally:
+        libm32.use_freestanding(False)
+    for a, b in zip(got, want):
+        assert a.shape == (3, 500) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_fs_orient_refuses_what_the_kernel_would_not_take():
+    m01, m10 = (torch.from_numpy(v) for v in moment_pairs(np.random.default_rng(27), 400))
+    K.reset_launch_counts()
+    assert all(t.shape == (0,) and t.dtype == torch.float32
+               for t in F.fs_orient(m01[:0], m10[:0]))
+    assert K.launch_counts()["freestanding"] == 0
+    with pytest.raises(TypeError):
+        F.fs_orient(m01.to(torch.float32), m10.to(torch.float32))
+    with pytest.raises(TypeError):
+        F.fs_orient(m01.to(torch.int64), m10)
+    with pytest.raises(TypeError):
+        F.fs_orient(m01.numpy(), m10)
+    with pytest.raises(ValueError):
+        F.fs_orient(m01[:-1], m10)
+    with pytest.raises(ValueError):
+        F.fs_orient(m01.view(20, 20).t(), m10.view(20, 20).t())
+
+
 @pytest.mark.parametrize("fn", ["atan2f", "sinf", "cosf_like_reference"])
 def test_trig_vs_jax(freestanding, fn):
     rng = np.random.default_rng(21)
@@ -231,6 +309,7 @@ def test_force_reference_keeps_the_trig_plain(freestanding, monkeypatch):
     def refuse(*_):
         raise AssertionError("K21 called")
 
+    monkeypatch.setattr(libm32, "fs_orient", refuse)
     monkeypatch.setattr(libm32, "fs_atan2", refuse)
     monkeypatch.setattr(libm32, "fs_sin", refuse)
     _same_table(gt.orb_extract(lena, 60, 20, force_reference=True), ref, "plain path")

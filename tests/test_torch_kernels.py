@@ -639,7 +639,7 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
                                        "gs_resize", "gs_blur_hist_window",
                                        "gs_threshold_sobel_window", "gs_copy", "gs_triad",
                                        "gs_match_template", "gs_contour", "gs_quad_warp_rows",
-                                       "gs_fs_atan2", "gs_fs_sin"}
+                                       "gs_fs_orient", "gs_fs_atan2", "gs_fs_sin"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
