@@ -1505,6 +1505,15 @@ def phase_scan_path(chk, dev):
     return batch, corners, launches
 
 
+def device_events(prof):
+    """A stopped profiler's device events: kernels, copies, fills.  Not the
+    device's copies of host ranges (``record_function``, the port's ``gs.``
+    spans), which overlap the kernels they cover."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events()
+            if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_calls(fn, *args, calls=10, sessions=3):
     """Device time per call by kernel and by the PyTorch op that launched it
     (over ``calls`` calls, device events only), the device events (kernels,
@@ -1525,7 +1534,7 @@ def profile_calls(fn, *args, calls=10, sessions=3):
             for _ in range(calls):
                 fn(*args)
             torch.cuda.synchronize()
-        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        on_device = device_events(prof)
         if on_device:
             break
     else:
@@ -1790,9 +1799,8 @@ def device_ms(fn, calls=20, sessions=3, kernel=None):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and (kernel is None or kernel in e.name))
+        total = sum(e.time_range.elapsed_us() for e in device_events(prof)
+                    if kernel is None or kernel in e.name)
         if total > 0:
             return total / 1e3 / calls
     raise AssertionError(f"the profiler saw no device time in {sessions} sessions")

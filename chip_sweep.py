@@ -193,7 +193,8 @@ from chip_smoke import (CONTOUR_BLOBS, CONTOUR_CAP, DENSE_C, DENSE_N, DENSE_R, F
                         FACES_W, FILTER_TAPS, FS_COS_OFFSET, MAIN_H, MAIN_N, MAIN_R, MAIN_W,
                         ORB_CAP, ORB_H, ORB_N, ORB_THR, ORB_W, SCAN_CAP, SCAN_N, SCAN_PAGE,
                         WARP_QUADS,
-                        WithEntries, _aruco, alternate_windows, brief_args, card_line, device_ms,
+                        WithEntries, _aruco, alternate_windows, brief_args, card_line, device_events,
+                        device_ms,
                         fs_composition, fs_moment_pairs, launch_floor, older_entries,
                         document_batch, lena_batch, match_batch, orb_call_moments,
                         receipt_batch, spiral, track_levels, twelve_blobs)
@@ -2360,9 +2361,8 @@ def main():
                         fn()
                     torch.cuda.synchronize()
                 names = {}
-                for e in prof.events():
-                    if e.device_type == torch.autograd.DeviceType.CUDA:
-                        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e4
+                for e in device_events(prof):
+                    names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e4
                 on_device[f"{kernel}:{label}"] = names
         emit("library_kernels", card=card, device_ms_a_call_by_name=on_device,
              source="torch.profiler device events over 10 calls after a warm-up call")

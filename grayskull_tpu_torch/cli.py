@@ -318,17 +318,18 @@ def main(argv=None):
         return 1
     from . import structlog
 
+    # the block closes once the output is written: elapsed_ms is the whole command
     with structlog.timed("cli.command", command=name, input=in_path,
                          shape=list(img.shape)):
         out = fn(img, argv[2 : 2 + argc])
-    if hasout:
-        if out is None:
-            _err(f"Command '{name}' did not produce output image")
-            return 1
-        out_path = argv[argc + 3]
-        if gio.write_pgm(out, out_path) != 0:
-            _err(f"Could not save {out_path}")
-            return 1
+        if hasout:
+            if out is None:
+                _err(f"Command '{name}' did not produce output image")
+                return 1
+            out_path = argv[argc + 3]
+            if gio.write_pgm(out, out_path) != 0:
+                _err(f"Could not save {out_path}")
+                return 1
     return 0
 
 

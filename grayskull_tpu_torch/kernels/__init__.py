@@ -32,7 +32,10 @@
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
 version for a CPU tensor.  :func:`launch_counts` reads how often each kernel was
-launched; :func:`reset_launch_counts` sets every count to 0.
+launched; :func:`reset_launch_counts` sets every count to 0.  Each wrapper that
+counts is also the span ``gs.kernels.<key>`` of its count's key
+(``profiling.spanned``): its checks, allocations, the library's load and the
+launch.
 """
 
 from . import bandwidth as _bandwidth_mod

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 
 __all__ = ["copy", "copy_plain", "launches", "triad", "triad_plain"]
@@ -44,6 +45,7 @@ def triad_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return ((x.to(torch.int32) + y.to(torch.int32)) & 255).to(torch.uint8)
 
 
+@profiling.spanned("gs.kernels.copy")
 def copy(x: torch.Tensor) -> torch.Tensor:
     """K17: a uint8 tensor -> a new tensor with the same bytes."""
     _check(x, "copy")
@@ -60,6 +62,7 @@ def copy(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@profiling.spanned("gs.kernels.triad")
 def triad(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """K18: two uint8 tensors of one shape -> ``(x + y) mod 256``."""
     _check(x, "triad")

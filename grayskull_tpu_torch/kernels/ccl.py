@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 from .preproc import _check_frames
 
@@ -77,6 +78,7 @@ def ccl_plain(imgs: torch.Tensor) -> torch.Tensor:
     return torch.where(fg, labels, -1).to(torch.int32)
 
 
+@profiling.spanned("gs.kernels.ccl")
 def ccl(imgs: torch.Tensor) -> torch.Tensor:
     """K9: (N, H, W) uint8 -> (N, H, W) int32 component minima, -1 for background."""
     _check_frames(imgs, "ccl")

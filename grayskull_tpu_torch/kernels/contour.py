@@ -34,6 +34,7 @@ import numbers
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build
 
 __all__ = ["ROW_FIELDS", "contour", "contour_plain", "launches"]
@@ -190,6 +191,7 @@ def _check(img, visited, table, label_map):
                                  "frame's device")
 
 
+@profiling.spanned("gs.kernels.contour")
 def contour(img, visited, start=None, table=None, label_map=None, max_contours=1, largest=False):
     """K20: the walks of one call over the (H, W) uint8 frame ``img``.
 

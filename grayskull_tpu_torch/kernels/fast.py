@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 from .preproc import _check_frames
 
@@ -100,6 +101,7 @@ def fast_plain(imgs: torch.Tensor, threshold, want_score: bool = False):
     return (score.to(torch.uint8) if want_score else None), key
 
 
+@profiling.spanned("gs.kernels.fast")
 def fast(imgs: torch.Tensor, threshold, want_score: bool = False):
     """K6: (N, H, W) uint8 frames + threshold -> (score uint8 or None, packed keys)."""
     _check_frames(imgs, "fast")

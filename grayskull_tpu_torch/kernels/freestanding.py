@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build
 
 __all__ = ["COS_OFFSET", "LOOP_BOUND", "fs_atan2", "fs_atan2_plain", "fs_orient",
@@ -117,6 +118,7 @@ def _check(t, name: str, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: the tensor must be contiguous")
 
 
+@profiling.spanned("gs.kernels.freestanding")
 def fs_orient(m01: torch.Tensor, m10: torch.Tensor):
     """K21: int32 moments ``m01``, ``m10`` of one shape -> (angle, sin, cos) as
     :func:`fs_orient_plain`, float32, in one launch."""
@@ -141,6 +143,7 @@ def fs_orient(m01: torch.Tensor, m10: torch.Tensor):
     return angle, sin, cos
 
 
+@profiling.spanned("gs.kernels.freestanding")
 def fs_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K21: float32 ``y``, ``x`` of one shape -> ``gs_atan2(y, x)``."""
     _check(y, "fs_atan2")
@@ -162,6 +165,7 @@ def fs_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@profiling.spanned("gs.kernels.freestanding")
 def fs_sin(x: torch.Tensor, offset: float | None = None) -> torch.Tensor:
     """K21: float32 ``x`` -> ``gs_sin(x + offset)``, the add rounded to float32
     (no add without an offset)."""

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 
 __all__ = ["from_int64", "integral", "integral_plain", "launches", "u32_to_int64"]
@@ -48,6 +49,7 @@ def integral_plain(imgs: torch.Tensor) -> torch.Tensor:
     return from_int64(torch.cumsum(torch.cumsum(imgs.to(torch.int64), dim=-1), dim=-2))
 
 
+@profiling.spanned("gs.kernels.integral")
 def integral(imgs: torch.Tensor) -> torch.Tensor:
     """K4: (N, H, W) uint8 -> (N, H, W) ``torch.uint32`` inclusive prefix sums."""
     if not isinstance(imgs, torch.Tensor):

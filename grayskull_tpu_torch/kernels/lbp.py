@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build
 from .integral import u32_to_int64
 
@@ -160,6 +161,7 @@ def lbp_eval_scale_plain(cascade, ii: torch.Tensor, scale: float, ny: int, nx: i
     return ok
 
 
+@profiling.spanned("gs.kernels.lbp_eval_scale")
 def lbp_eval_scale(cascade, ii: torch.Tensor, scale: float, ny: int, nx: int,
                    step: int = 1, origin=(0, 0)) -> torch.Tensor:
     """K5: (N, H, W) uint32 integral -> (N, ny, nx) bool hits of one ladder scale.

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 
 __all__ = ["launches", "otsu", "otsu_plain"]
@@ -61,6 +62,7 @@ def otsu_plain(hist: torch.Tensor, total: int) -> torch.Tensor:
     return thr.to(torch.uint8)
 
 
+@profiling.spanned("gs.kernels.otsu")
 def otsu(hist: torch.Tensor, total: int) -> torch.Tensor:
     """K3: (N, 256) int32 histograms, ``total`` pixels per frame -> (N,) uint8."""
     if not isinstance(hist, torch.Tensor):

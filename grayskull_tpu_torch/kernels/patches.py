@@ -35,6 +35,7 @@ import os
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build
 from .integral import from_int64
 from .preproc import _check_frames
@@ -143,6 +144,7 @@ def orb_brief_plain(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor, sin: t
 # ---------------------------------------------------------------------------
 
 
+@profiling.spanned("gs.kernels.orb_moments")
 def orb_moments(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 radius: int = 15) -> tuple[torch.Tensor, torch.Tensor]:
     """K7: (N, H, W) uint8 + (N, K) int32 keypoints -> int32 ``(m01, m10)``, each (N, K)."""
@@ -165,6 +167,7 @@ def orb_moments(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return m01, m10
 
 
+@profiling.spanned("gs.kernels.orb_brief")
 def orb_brief(imgs: torch.Tensor, x: torch.Tensor, y: torch.Tensor, sin: torch.Tensor,
               cos: torch.Tensor) -> torch.Tensor:
     """K8: frames, (N, K) int32 keypoints, float32 sin and cos -> (N, K, 8) uint32 words."""

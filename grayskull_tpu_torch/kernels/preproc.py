@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 
 __all__ = ["adaptive", "adaptive_plain", "blur_hist", "blur_hist_plain", "blur_hist_window",
@@ -235,6 +236,7 @@ def threshold_sobel_window_plain(blurred_ext: torch.Tensor, thresholds: torch.Te
 # ---------------------------------------------------------------------------
 
 
+@profiling.spanned("gs.kernels.blur_hist")
 def blur_hist(imgs: torch.Tensor, radius: int, with_hist: bool = True):
     """K1: (N, H, W) uint8 -> ``(blurred uint8, hist (N, 256) int32 or None)``.
 
@@ -258,6 +260,7 @@ def blur_hist(imgs: torch.Tensor, radius: int, with_hist: bool = True):
     return blurred, hist
 
 
+@profiling.spanned("gs.kernels.threshold_sobel")
 def threshold_sobel(imgs: torch.Tensor, thresholds: torch.Tensor | None = None,
                     want_binary: bool = True):
     """K2: (N, H, W) uint8 [+ (N,) uint8 thresholds] -> ``(binary or None, edges)``.
@@ -285,6 +288,7 @@ def threshold_sobel(imgs: torch.Tensor, thresholds: torch.Tensor | None = None,
     return binary, edges
 
 
+@profiling.spanned("gs.kernels.adaptive")
 def adaptive(imgs: torch.Tensor, radius: int, c: int) -> torch.Tensor:
     """K11: (N, H, W) uint8 -> ``src > clipped_mean - c ? 255 : 0`` uint8.
 
@@ -309,6 +313,7 @@ def adaptive(imgs: torch.Tensor, radius: int, c: int) -> torch.Tensor:
     return out
 
 
+@profiling.spanned("gs.kernels.morph")
 def morph(imgs: torch.Tensor, op: str) -> torch.Tensor:
     """K12: (N, H, W) uint8 -> the 3x3 ``"erode"`` (min) or ``"dilate"`` (max) over
     each pixel's in-frame neighbours."""
@@ -328,6 +333,7 @@ def morph(imgs: torch.Tensor, op: str) -> torch.Tensor:
     return out
 
 
+@profiling.spanned("gs.kernels.filter3")
 def filter3(imgs: torch.Tensor, taps, norm: int) -> torch.Tensor:
     """K13: (N, H, W) uint8 and 3x3 int32 taps -> ``gs_filter``: the zero-padded
     correlation, ``(uint32)sum / norm`` read back as int32, clamped to 0..255.
@@ -357,6 +363,7 @@ def filter3(imgs: torch.Tensor, taps, norm: int) -> torch.Tensor:
     return out
 
 
+@profiling.spanned("gs.kernels.blur_hist_window")
 def blur_hist_window(imgs_ext: torch.Tensor, row0: int, radius: int, *, h_total: int,
                      row_lo: int, row_hi: int):
     """K15: one H-shard ``(N, h_ext, W)`` uint8 -> ``(blurred_ext, hist (N, 256) int32)``.
@@ -403,6 +410,7 @@ def blur_hist_window(imgs_ext: torch.Tensor, row0: int, radius: int, *, h_total:
     return blurred, hist
 
 
+@profiling.spanned("gs.kernels.threshold_sobel_window")
 def threshold_sobel_window(blurred_ext: torch.Tensor, thresholds: torch.Tensor, row0: int, *,
                            h_total: int, want_binary: bool = True):
     """K16: one H-shard ``(N, h_ext, W)`` uint8 and ``(N,)`` uint8 thresholds ->

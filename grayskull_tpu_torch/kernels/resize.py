@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 from .preproc import _check_frames
 
@@ -64,6 +65,7 @@ def resize_plain(imgs: torch.Tensor, size) -> torch.Tensor:
     return (((t1 + t2) + t3) + t4).to(torch.uint8)
 
 
+@profiling.spanned("gs.kernels.resize")
 def resize(imgs: torch.Tensor, size) -> torch.Tensor:
     """K14: (N, sh, sw) uint8 frames, ``size = (dh, dw)`` -> (N, dh, dw) uint8,
     bilinear with half-pixel centres, bit-exact ``gs_resize``."""

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 from .preproc import _check_frames
 
@@ -47,6 +48,7 @@ def match_template_plain(imgs: torch.Tensor, tmpl: torch.Tensor) -> torch.Tensor
     return (255 - ssd // (255 * th * tw)).to(torch.uint8)
 
 
+@profiling.spanned("gs.kernels.match_template")
 def match_template(imgs: torch.Tensor, tmpl: torch.Tensor) -> torch.Tensor:
     """K19: (N, H, W) uint8 frames and an (th, tw) uint8 template on the same
     device -> (N, H - th + 1, W - tw + 1) uint8 scores, 255 a perfect match."""

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 from .preproc import _check_frames
 
@@ -129,6 +130,7 @@ def _check(src: torch.Tensor, corners: torch.Tensor, size, name: str) -> tuple[i
     return dh, dw
 
 
+@profiling.spanned("gs.kernels.quad_warp")
 def quad_warp(src: torch.Tensor, corners: torch.Tensor, size) -> torch.Tensor:
     """K10: (N, sh, sw) uint8 frames, (N, 4, 2) int32 corners (x, y rows: TL,
     TR, BR, BL), ``size = (dh, dw)`` -> (N, dh, dw) uint8 pages."""
@@ -146,6 +148,7 @@ def quad_warp(src: torch.Tensor, corners: torch.Tensor, size) -> torch.Tensor:
     return out
 
 
+@profiling.spanned("gs.kernels.quad_warp_rows")
 def quad_warp_rows(src: torch.Tensor, corners: torch.Tensor, size, row0: int,
                    rows: int) -> torch.Tensor:
     """K10's rows entry: the rows ``row0 .. row0 + rows - 1`` of

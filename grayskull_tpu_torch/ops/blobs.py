@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..core import Blobs, Point, Rect, as_image, as_tensor
 from ..kernels.ccl import ccl, ccl_plain
 
@@ -111,6 +112,7 @@ class _Segments:
                 self.extreme(self.xs, "amax", -1), self.extreme(ys, "amax", -1))
 
 
+@profiling.spanned("gs.ops.blobs")
 def blobs(img, max_blobs: int, force_reference: bool = False):
     """Connected components with stats — ``gs_blobs`` (grayskull.h:330-402).
 
@@ -149,34 +151,36 @@ def blobs(img, max_blobs: int, force_reference: bool = False):
 
     # per-(frame, label) statistics; label 0 gathers background and dropped pixels
     nseg = cap + 1
-    area, sum_x, sum_y, min_x, min_y, max_x, max_y = _Segments(seg, nseg, w).stats()
+    with profiling.span("gs.ops.blobs.stats"):
+        area, sum_x, sum_y, min_x, min_y, max_x, max_y = _Segments(seg, nseg, w).stats()
 
     # a label survives compaction iff it has pixels; compact in ascending label order
-    is_rep = area > 0
-    is_rep[:, 0] = False
-    count = torch.cumsum(is_rep, 1)
-    dst = torch.where(is_rep, count - 1, cap)  # column cap is scratch, dropped
+    with profiling.span("gs.ops.blobs.compact"):
+        is_rep = area > 0
+        is_rep[:, 0] = False
+        count = torch.cumsum(is_rep, 1)
+        dst = torch.where(is_rep, count - 1, cap)  # column cap is scratch, dropped
 
-    def compact(values):
-        out = torch.zeros((n, nseg), dtype=torch.int64, device=dev)
-        return out.scatter_(1, dst, values)[:, :cap]
+        def compact(values):
+            out = torch.zeros((n, nseg), dtype=torch.int64, device=dev)
+            return out.scatter_(1, dst, values)[:, :cap]
 
-    labels_r = torch.arange(nseg, device=dev, dtype=torch.int64).expand(n, nseg)
-    t_area = compact(area)
-    safe_area = t_area.clamp(min=1)
+        labels_r = torch.arange(nseg, device=dev, dtype=torch.int64).expand(n, nseg)
+        t_area = compact(area)
+        safe_area = t_area.clamp(min=1)
 
-    def udiv(s):  # C's unsigned division of the wrapped sum
-        return (compact(s) & _U32) // safe_area
+        def udiv(s):  # C's unsigned division of the wrapped sum
+            return (compact(s) & _U32) // safe_area
 
-    table = Blobs(
-        n=count[:, -1].to(torch.int32),
-        label=compact(labels_r).to(torch.int32),
-        area=t_area.to(torch.int32),
-        box=Rect(*(v.to(torch.int32) for v in (
-            compact(min_x), compact(min_y), compact(max_x - min_x + 1),
-            compact(max_y - min_y + 1)))),
-        centroid=Point(udiv(sum_x).to(torch.int32), udiv(sum_y).to(torch.int32)),
-    )
+        table = Blobs(
+            n=count[:, -1].to(torch.int32),
+            label=compact(labels_r).to(torch.int32),
+            area=t_area.to(torch.int32),
+            box=Rect(*(v.to(torch.int32) for v in (
+                compact(min_x), compact(min_y), compact(max_x - min_x + 1),
+                compact(max_y - min_y + 1)))),
+            centroid=Point(udiv(sum_x).to(torch.int32), udiv(sum_y).to(torch.int32)),
+        )
     label_map = seg.view(n, h, w).to(torch.uint16)
     if single:
         table = Blobs(table.n[0], table.label[0], table.area[0], Rect(*(v[0] for v in table.box)),
@@ -184,6 +188,7 @@ def blobs(img, max_blobs: int, force_reference: bool = False):
     return table, _unbatch(label_map, single), _unbatch(overflowed, single)
 
 
+@profiling.spanned("gs.ops.blob_corners")
 def blob_corners(img, labels, label, box: Rect, centroid: Point) -> torch.Tensor:
     """Quad corner finder — ``gs_blob_corners`` (grayskull.h:404-421).
 

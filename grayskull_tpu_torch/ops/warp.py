@@ -12,12 +12,14 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..core import as_image, as_tensor
 from ..kernels.warp import quad_warp, quad_warp_plain
 
 __all__ = ["perspective_correct"]
 
 
+@profiling.spanned("gs.ops.perspective_correct")
 def perspective_correct(src, corners, size, force_reference: bool = False) -> torch.Tensor:
     """Warp the quad ``corners`` (TL, TR, BR, BL as integer (x, y) rows) to a
     ``size=(h, w)`` page.

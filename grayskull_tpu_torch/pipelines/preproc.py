@@ -12,6 +12,7 @@ checked against.  Both are bit-exact with ``grayskull_tpu.pipelines.preproc``.
 
 from __future__ import annotations
 
+from .. import profiling
 from ..core import as_image
 from ..kernels.otsu import otsu, otsu_plain
 from ..kernels.preproc import (blur_hist, blur_hist_plain, frame_histograms,
@@ -38,6 +39,7 @@ def preprocess_reference(imgs, radius: int = 2, want_binary: bool = True):
     return _unbatch((blurred, binary, edges, t), single)
 
 
+@profiling.spanned("gs.pipelines.preprocess")
 def preprocess(imgs, radius: int = 2, force_reference: bool = False,
                want_binary: bool = True):
     """blur -> otsu -> threshold -> sobel.  (N, H, W) or (H, W) uint8.

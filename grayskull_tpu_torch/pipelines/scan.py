@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..core import Point, Rect
 from ..kernels.otsu import otsu, otsu_plain
 from ..kernels.preproc import blur_hist, blur_hist_plain
@@ -23,6 +24,7 @@ from ..ops.warp import perspective_correct
 __all__ = ["preprocess_binarize", "scan"]
 
 
+@profiling.spanned("gs.pipelines.scan.binarize")
 def _binarize(frames: torch.Tensor, force_reference: bool) -> torch.Tensor:
     h, w = frames.shape[-2:]
     if force_reference:
@@ -44,6 +46,7 @@ def preprocess_binarize(img, force_reference: bool = False) -> torch.Tensor:
     return out[0] if single else out
 
 
+@profiling.spanned("gs.pipelines.scan")
 def scan(img, out_size=(1000, 800), max_blobs: int = 1000, force_reference: bool = False):
     """Scan document photo(s) to rectified ``out_size=(h, w)`` pages.
 

@@ -5,21 +5,127 @@
 * :func:`throughput` — frames/s and pixel rate of a batched call;
 * :func:`hbm_bandwidth_gbps` — the device memory's copy and triad rates,
   from the port's own K17 ``copy`` and K18 ``triad`` kernels;
-* :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace.
+* :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace;
+* :func:`span`, :func:`spanned` — a named interval of the port's host path
+  (``gs.<layer>.<name>``), recorded only while a profiler session records;
+  :func:`spans` and :func:`clear_spans` read and empty their store.
 
 The timers time the card only: without a CUDA device they raise rather than
 time the CPU under a device metric's name.
+
+Spans mark the port's layer boundaries: ``gs.pipelines.*`` (an entry call),
+``gs.ops.*`` and ``gs.kernels.<key>`` (a kernel wrapper, named by its
+``launches`` key).  With no profiler session a span costs one read of the
+profiler's flag.  Inside one (``torch.profiler.profile``, :func:`trace`) each
+span is a ``record_function`` range, on the profiler's timeline beside the
+aten ops and the device events, and a :class:`Span` in a bounded store, on
+``time.perf_counter_ns``'s clock.  Spans nest by a stack a thread; the spans
+under one outermost span share its ``call`` id.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
 import statistics
+import threading
+import time
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["hbm_bandwidth_gbps", "sync", "throughput", "timeit", "trace"]
+__all__ = ["Span", "clear_spans", "hbm_bandwidth_gbps", "span", "spanned", "spans", "sync",
+           "throughput", "timeit", "trace"]
+
+SPAN_STORE = 1 << 16  # spans kept, the newest
+
+
+class Span(NamedTuple):
+    """One closed span: ``start_ns``/``end_ns`` on ``time.perf_counter_ns``;
+    ``parent`` the enclosing span's ``id`` (None for an outermost span) and
+    ``call`` the outermost span's ``id``."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    call: int
+
+
+_store = collections.deque(maxlen=SPAN_STORE)
+_ids = itertools.count(1)
+_open = threading.local()  # .stack: the thread's open spans, innermost last
+
+
+_NULL = contextlib.nullcontext()  # every span of a call with no profiler session
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "call", "start_ns", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        outer = stack[-1] if stack else None
+        self.parent, self.call = (None, self.id) if outer is None else (outer.id, outer.call)
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        try:
+            self._range.__exit__(*exc)
+        finally:
+            _open.stack.pop()
+            _store.append(Span(self.name, self.start_ns, end, self.id, self.parent, self.call))
+        return False
+
+
+def span(name: str):
+    """``with span("gs.ops.blobs.stats"): ...`` — the block as a span while a
+    profiler session records, else the shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name)
+
+
+def spanned(name: str):
+    """``@spanned("gs.kernels.ccl")`` — each call of the function as :func:`span` ``(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def spans() -> list[Span]:
+    """The stored spans, oldest first (each stored when it closes, so a child
+    comes before its parent)."""
+    return list(_store)
+
+
+def clear_spans() -> None:
+    _store.clear()
 
 
 def sync(device=None) -> None:
@@ -89,7 +195,8 @@ def hbm_bandwidth_gbps(mbytes: int = 256, iters: int = 20) -> dict:
 def trace(logdir: str):
     """``with trace("/tmp/tb"): ...`` profiles the block with ``torch.profiler``
     (the CPU, and the card when there is one) and writes ``trace.json``, a
-    Chrome trace, under ``logdir``.  Yields the profiler."""
+    Chrome trace with the port's ``gs.`` spans, under ``logdir``.  Yields the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

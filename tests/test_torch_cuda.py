@@ -12,6 +12,7 @@ the Otsu sweep is bit-exact, so the tolerance is 0.
 file (the others import it): numpy inputs to the port run on the CPU there.
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch
 
 import grayskull_tpu_torch as gt
 from grayskull_tpu_torch import kernels as K
-from grayskull_tpu_torch import libm32
+from grayskull_tpu_torch import libm32, profiling
 from grayskull_tpu_torch.core import LbpCascade, host_arrays_to
 from grayskull_tpu_torch.ops.lbp import _grid_plan
 
@@ -768,6 +769,55 @@ def test_scan_launches_its_kernels_on_card(cuda_device):
     on_cpu = gt.scan(frames)
     for a, b, c in zip((pages, corners), ref, on_cpu):
         assert a.is_cuda and torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_kernel_spans_count_the_launches_of_a_scan_call_on_card(cuda_device):
+    """In a profiled ``scan`` call on the card each kernel's ``gs.kernels.<key>``
+    spans equal its launch counter's rise; the call's output is unchanged."""
+    doc = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/document.pgm")
+    frames = torch.from_numpy(np.stack([np.roll(doc, 5 * i, axis=1) for i in range(4)]))
+    frames = frames.to(cuda_device)
+    want = gt.scan(frames)
+    profiling.clear_spans()
+    K.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        got = gt.scan(frames)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    spans = collections.Counter(s.name.removeprefix("gs.kernels.") for s in profiling.spans()
+                                if s.name.startswith("gs.kernels."))
+    assert counts == dict(spans) == {"blur_hist": 1, "otsu": 1, "ccl": 1, "quad_warp": 1}
+    assert len({s.call for s in profiling.spans()}) == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_chip_smoke_profiles_the_same_device_work_with_spans_as_without(cuda_device,
+                                                                         monkeypatch):
+    """``chip_smoke.profile_calls`` on ``preprocess`` counts the same device
+    events a call, and the same kernels, with the ``gs.`` spans recording as
+    with them turned off: the spans' device copies are not counted."""
+    import types
+
+    import chip_smoke
+
+    batch = _frames((8, 256, 320), 61, cuda_device)
+    profiling.clear_spans()
+    on = chip_smoke.profile_calls(gt.preprocess, batch, 2)
+    assert {s.name for s in profiling.spans()} >= {"gs.pipelines.preprocess",
+                                                    "gs.kernels.blur_hist"}
+    monkeypatch.setattr(profiling, "_autograd_profiler",
+                        types.SimpleNamespace(_is_profiler_enabled=False))
+    profiling.clear_spans()
+    off = chip_smoke.profile_calls(gt.preprocess, batch, 2)
+    assert profiling.spans() == []
+    assert on["device_launches_a_call"] == off["device_launches_a_call"]
+    assert on["device_kernels"] == off["device_kernels"]
+    assert ({name for name, _ in on["device_ms_by_kernel"]}
+            == {name for name, _ in off["device_ms_by_kernel"]})
 
 
 @pytest.mark.cuda
