@@ -94,9 +94,12 @@ Then it times the paths with CUDA events, profiles preprocess, detect_faces,
 orb_extract, track, the scanner, config #2, the resize, the sharded
 preprocess, the template and contour entry points and the sparse sharded
 calls (each beside its single-device call, ``sparse_timing``) (``torch.profiler``:
-device time by kernel and op, idle share, host enqueue time), takes K4's, K6's, K7's, K8's and K9's device time from the
-profiler (K8 also at each of ``track``'s six calls; with ``--parent DIR``, K4,
-K8, K10, K19 and K20 of DIR's ``csrc/`` in turns with the committed ones),
+device time by kernel and op, idle share, host enqueue time), takes K4's, K6's, K7's, K8's,
+K9's and K22's (``blob_stats`` on the label maps of 32 document pages, after
+K22 is held to its plain version there, on a slab's rows from 700, a
+2100x2100 blob and 7000 labels) device time from the profiler (K8 also at
+each of ``track``'s six calls; with ``--parent DIR``, K4, K8, K10, K19 and
+K20 of DIR's ``csrc/`` in turns with the committed ones),
 K10's at ``scan``'s call, K20's at ``find_contours``' and
 ``largest_blob_contour``'s calls and on a spiral trace, and
 measures K5's real work: each window's exit stage on two faces frames (the
@@ -231,6 +234,8 @@ KERNELS = {
     "freestanding": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/freestanding.cu",
                      "replaces": "grayskull_tpu/libm32.py:110",
                      "also_replaces": "grayskull_tpu/libm32.py:126"},
+    "blob_stats": {"route": "cuda", "source": "grayskull_tpu_torch/csrc/blobs.cu",
+                   "replaces": "grayskull_tpu/ops/blobs.py:112 _aggregate_stats"},
 }
 
 PREPROCESS_KERNELS = ("blur_hist", "otsu", "threshold_sobel")
@@ -248,7 +253,8 @@ FAST_EDGE_SHAPES = [(1, 20, w) for w in range(7, 41)] + [(2, 30, 641), (2, 6, 50
                                                           (65537, 7, 9)]
 FAST_UNALIGNED = (2, 33, 100)
 FAST_EDGE_THRESHOLDS = (0, 20, 256)
-SCAN_KERNELS = ("blur_hist", "otsu", "ccl", "quad_warp")
+SCAN_KERNELS = ("blur_hist", "otsu", "ccl", "blob_stats", "quad_warp")
+STATS_PAGES = 32  # K22 is timed on the label maps of 32 document pages (the bulk cell's batch)
 SCAN_N, SCAN_PAGE, SCAN_CAP = 8, (1000, 800), 1000
 CCL_SHAPES = [(1, 1, 4096), (1, 4096, 1), (1, 7, 8), (1, 17, 129), (1, 768, 1024),
               (8, 768, 1024)]
@@ -319,8 +325,9 @@ CLI_COMMANDS = [  # (argv, input, kernels the command must launch on the card)
     (["resize", "300", "170"], "lena", ("resize",)), (["crop", "20", "10", "40", "30"], "lena", ()),
     (["blur", "2"], "lena", ("blur_hist",)), (["threshold", "otsu"], "lena", ("otsu",)),
     (["adaptive", "15", "5"], "receipt", ("adaptive",)), (["sobel"], "lena", ("threshold_sobel",)),
-    (["morph", "dilate", "2"], "receipt", ("morph",)), (["blobs", "50"], "lena", ("ccl",)),
-    (["scan"], "document", SCAN_KERNELS), (["keypoints", "50", "20"], "lena", ("fast",)),
+    (["morph", "dilate", "2"], "receipt", ("morph",)),
+    (["blobs", "50"], "lena", ("ccl", "blob_stats")), (["scan"], "document", SCAN_KERNELS),
+    (["keypoints", "50", "20"], "lena", ("fast",)),
     (["orb", "aruco"], "aruco", ORB_KERNELS), (["faces", "2"], "lena", FACES_KERNELS),
 ]
 # the least time of a kernel: bytes over the memory rate (NVIDIA's H100 SXM data
@@ -1350,6 +1357,13 @@ def _blob_fields(table):
     return [table.n, table.label, table.area, *table.box, *table.centroid]
 
 
+def document_labels(n, dev):
+    """``scan``'s label map of ``document_batch(n)``: (n, P) int32 and the width."""
+    frames = torch.from_numpy(document_batch(n)).to(dev)
+    labels = gt.blobs(gt.preprocess_binarize(frames), SCAN_CAP)[1]
+    return labels.to(torch.int32).view(n, -1), frames.shape[2]
+
+
 def phase_scan_kernels(chk, rng, dev):
     cases = [("snake", snake()[None]), ("spiral 40x128", spiral(40, 128)[None]),
              ("spiral 1024x1024", spiral(1024, 1024)[None]),
@@ -1383,6 +1397,20 @@ def phase_scan_kernels(chk, rng, dev):
     if coord_sum < 2**32 or [int(v[0, 0]) for v in table.centroid] != [want, want]:
         raise AssertionError(f"2100x2100 centroid {[int(v[0, 0]) for v in table.centroid]}, "
                              f"want {want} from the sum mod 2^32")
+    # K22 on the scanner's label maps, the one blob of 2100x2100 (sums past
+    # 2^32), a slab's rows from 700, and 7000 labels (the global-atomics path)
+    seg, seg_w = document_labels(STATS_PAGES, dev)
+    many = torch.from_numpy(rng.integers(0, 7000, (2, 100 * 128), dtype=np.int32)).to(dev)
+    stats_cases = [(f"document {STATS_PAGES} pages", seg, SCAN_CAP + 1, seg_w, 0),
+                   ("document page rows from 700", seg[:1], SCAN_CAP + 1, seg_w, 700),
+                   ("2100x2100 all 255", labels.to(torch.int32).view(1, -1), 5, 2100, 0),
+                   ("7000 labels", many, 7000, 128, 0)]
+    for what, x, nseg, width, row0 in stats_cases:
+        for a, b in zip(K.blob_stats(x, nseg, width, row0),
+                        K.blob_stats_plain(x, nseg, width, row0)):
+            chk.same("blob_stats", a, b, what)
+    torch.cuda.synchronize()
+    del seg, many
 
     src = torch.from_numpy(document_batch(SCAN_N)).to(dev)
     for name, quad in WARP_QUADS.items():
@@ -1414,8 +1442,9 @@ def phase_scan_kernels(chk, rng, dev):
          warp_many_frames=[list(s) for s in WARP_MANY_FRAMES],
          warp_thin_sources=[list(s) for s in WARP_THIN_SOURCES],
          warp_edge_widths=list(WARP_EDGE_WIDTHS), warp_wide=[list(s) for s in WARP_WIDE],
-         full_frame_centroid=want, checks={k: chk.checks[k] for k in ("ccl", "quad_warp")},
-         max_abs_err={k: chk.max_err[k] for k in ("ccl", "quad_warp")})
+         full_frame_centroid=want, blob_stats_cases=[c[0] for c in stats_cases],
+         checks={k: chk.checks[k] for k in ("ccl", "quad_warp", "blob_stats")},
+         max_abs_err={k: chk.max_err[k] for k in ("ccl", "quad_warp", "blob_stats")})
 
 
 def warp_edge_corners(rng, n, sh, sw):
@@ -1614,6 +1643,18 @@ def phase_scan_timing(batch, corners, card, parent=None):
             "grid_sample(bilinear, align_corners=True) of the float frames at the same "
             "coordinates: not bit-exact"),
     }
+    # K22 at the bulk cell's batch: the label map read once, the outputs written once
+    seg, seg_w = document_labels(STATS_PAGES, batch.device)
+    nseg = SCAN_CAP + 1
+    times["blob_stats"] = kernel_entry(
+        timeit(K.blob_stats, seg, nseg, seg_w) * 1e3,
+        timeit(K.blob_stats_plain, seg, nseg, seg_w, iters=3) * 1e3,
+        4 * seg.numel() + 7 * 8 * seg.shape[0] * nseg, 0, None,
+        "none: no one call gives the seven statistics")
+    times["blob_stats"]["device_ms"] = device_ms(lambda: K.blob_stats(seg, nseg, seg_w))
+    stats_by_kernel = profile_calls(K.blob_stats, seg, nseg, seg_w)["device_ms_by_kernel"]
+    stats_one_ms = device_ms(lambda: K.blob_stats(seg[:1], nseg, seg_w))
+    del seg
     # K9's three kernels by the profiler: back-to-back events read the host too
     gen = torch.Generator(device=batch.device).manual_seed(13)
     noise = ((torch.rand(binary.shape, generator=gen, device=batch.device) < 0.55) * 255).to(
@@ -1631,11 +1672,16 @@ def phase_scan_timing(batch, corners, card, parent=None):
          device_ms={"ccl": times["ccl"]["device_ms"],
                     "ccl_one_frame": device_ms(lambda: K.ccl(binary[:1])),
                     "ccl_density_0.55": device_ms(lambda: K.ccl(noise)),
-                    "quad_warp": warp_ms, "quad_warp_one_frame": warp_one_ms},
+                    "quad_warp": warp_ms, "quad_warp_one_frame": warp_one_ms,
+                    f"blob_stats_{STATS_PAGES}_pages": times["blob_stats"]["device_ms"],
+                    "blob_stats_one_page": stats_one_ms},
+         blob_stats_by_kernel=stats_by_kernel,
+         blob_stats_bound_ms=times["blob_stats"]["bound_ms"],
          parent_device_ms={"quad_warp": warp_parent_ms, "quad_warp_one_frame": warp_one_parent_ms},
          device_ms_by_kernel={label: profile_calls(K.ccl, x)["device_ms_by_kernel"]
                               for label, x in (("ccl", binary), ("ccl_one_frame", binary[:1]))},
-         event_ms={"ccl": times["ccl"]["ms"], "quad_warp": times["quad_warp"]["ms"]},
+         event_ms={"ccl": times["ccl"]["ms"], "quad_warp": times["quad_warp"]["ms"],
+                   "blob_stats": times["blob_stats"]["ms"]},
          quad_warp_bound_ms=times["quad_warp"]["bound_ms"],
          quad_warp_operations=times["quad_warp"]["operations"],
          source="torch.profiler device events over 20 calls after a warm-up call; with a "
@@ -2694,7 +2740,8 @@ def phase_sparse_path(chk, dev):
     faces = torch.from_numpy(lena_batch(FACES_N, FACES_H, FACES_W, roll=7)).to(dev)
     mesh24 = card_mesh((2, 4), dev)
     ns = SPARSE_MESH[1]
-    scan_counts = {"blur_hist_window": ns, "otsu": 1, "ccl": ns, "quad_warp_rows": ns}
+    scan_counts = {"blur_hist_window": ns, "otsu": 1, "ccl": ns, "blob_stats": ns,
+                   "quad_warp_rows": ns}
     orb_counts = {"fast": ns, "orb_moments": ns, "orb_brief": ns}
     faces_counts = {"integral": 8,
                     "lbp_eval_scale": faces_band_launches(cascade, FACES_H, FACES_W, 2, 4)}
@@ -2706,7 +2753,8 @@ def phase_sparse_path(chk, dev):
                                                             mesh),
          (gt.label_components, noise), {"ccl": ns}, 1, "ccl"),
         ("blobs_sharded document", (par.blobs_sharded, binary, mesh, SCAN_CAP),
-         (lambda x, cap: gt.blobs(x, cap)[0], binary, SCAN_CAP), {"ccl": ns}, 1, "ccl"),
+         (lambda x, cap: gt.blobs(x, cap)[0], binary, SCAN_CAP), {"ccl": ns, "blob_stats": ns}, 1,
+         "ccl"),
         ("scan_spatial_shardmap document", (par.scan_spatial_shardmap, doc, mesh, SCAN_PAGE,
                                             SCAN_CAP),
          (gt.scan, doc, SCAN_PAGE, SCAN_CAP), scan_counts, 1, "quad_warp_rows"),
@@ -2735,8 +2783,8 @@ def phase_sparse_path(chk, dev):
             raise AssertionError(f"{label} launched {launched}, want {want}")
         if waits != want_waits:
             raise AssertionError(f"{label} waited on the host {waits} times, want {want_waits}")
-        for k, v in counts.items():
-            launches[k] += v
+        for k in KERNELS:
+            launches[k] += counts[k]
         if owner is None:
             _same_tables(chk, got, ref, label)
         elif owner == "match":
@@ -3076,8 +3124,9 @@ def phase_debug(dev):
     rect_overlay = debug.draw_rects(host, rects)
     cross_overlay = debug.draw_crosses(frame, kps)
     torch.cuda.synchronize()
-    for k, v in K.launch_counts().items():
-        launches[k] += v
+    counts = K.launch_counts()
+    for k in KERNELS:
+        launches[k] += counts[k]
     if int(rects.n) < 1 or int(kps.n) < 1:
         raise AssertionError(f"debug: {int(rects.n)} faces, {int(kps.n)} keypoints to draw")
     if (not np.array_equal(rect_overlay, debug.draw_rects(host, gt.detect_faces(frame.cpu(),
@@ -3195,8 +3244,9 @@ def phase_demos(dev):
             K.reset_launch_counts()
             got = card.ask(method, path, body)
             torch.cuda.synchronize()
-            for k, v in K.launch_counts().items():
-                launches[k] += v
+            counts = K.launch_counts()
+            for k in KERNELS:
+                launches[k] += counts[k]
             want = cpu.ask(method, path, body)
             same = (got[0] == want[0] and (json.loads(got[1]) == json.loads(want[1])
                                            if got[1][:1] == b"{" else got[1] == want[1]))

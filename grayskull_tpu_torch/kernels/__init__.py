@@ -28,6 +28,10 @@
   reference's ``GS_NO_STDLIB`` trig of the ``freestanding`` mode: ORB's angle,
   sine and cosine from int32 moments in one launch; each element's range
   reduction in its own loop)
+* :mod:`.blobs` — K22 ``blob_stats`` (each label's area, coordinate sums and box
+  over a batch of label maps: a table of every label in each block's shared
+  memory, one atomic a label and field at the end; global atomics where the
+  table does not fit)
 * :mod:`._build` — ``nvcc`` build of ``csrc/*.cu`` on first use, ``ctypes`` binding
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the plain
@@ -39,6 +43,7 @@ launch.
 """
 
 from . import bandwidth as _bandwidth_mod
+from . import blobs as _blobs_mod
 from . import ccl as _ccl_mod
 from . import contour as _contour_mod
 from . import fast as _fast_mod
@@ -52,6 +57,7 @@ from . import resize as _resize_mod
 from . import template as _template_mod
 from . import warp as _warp_mod
 from .bandwidth import copy, copy_plain, triad, triad_plain  # noqa: F401
+from .blobs import blob_stats, blob_stats_plain  # noqa: F401
 from .ccl import ccl, ccl_plain  # noqa: F401
 from .contour import contour, contour_plain  # noqa: F401
 from .fast import fast, fast_plain  # noqa: F401
@@ -74,6 +80,8 @@ from .warp import quad_warp, quad_warp_plain, quad_warp_rows, quad_warp_rows_pla
 __all__ = [
     "adaptive",
     "adaptive_plain",
+    "blob_stats",
+    "blob_stats_plain",
     "blur_hist",
     "blur_hist_plain",
     "blur_hist_window",
@@ -131,7 +139,8 @@ __all__ = [
 _COUNTERS = (_preproc_mod.launches, _otsu_mod.launches, _integral_mod.launches,
              _lbp_mod.launches, _fast_mod.launches, _patches_mod.launches, _ccl_mod.launches,
              _warp_mod.launches, _resize_mod.launches, _bandwidth_mod.launches,
-             _template_mod.launches, _contour_mod.launches, _freestanding_mod.launches)
+             _template_mod.launches, _contour_mod.launches, _freestanding_mod.launches,
+             _blobs_mod.launches)
 
 
 def launch_counts() -> dict:

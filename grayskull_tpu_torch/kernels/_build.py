@@ -70,6 +70,7 @@ _SIGNATURES = {
     "gs_fs_orient": (*(_PTR,) * 5, _SIZE, _PTR),
     "gs_fs_atan2": (_PTR, _PTR, _PTR, _SIZE, _PTR),
     "gs_fs_sin": (_PTR, _PTR, _SIZE, _FLOAT, _PTR),
+    "gs_blob_stats": (_PTR, _PTR, *(_INT,) * 6, _PTR),
 }
 
 _lock = threading.Lock()

@@ -17,7 +17,8 @@ outputs on the mesh's first device.
   clears, a number of rounds that grows with the image; here the host waits
   once a call, whatever the image (never with one shard).
 * :func:`blobs_sharded` — ``gs_blobs``' statistics: each shard reduces its
-  slab-components with ``ops.blobs``' scatter scheme, keyed by their rank
+  slab-components with K22 ``blob_stats`` (``ops.blobs``' statistics; its
+  other extremes with ``ops.blobs``' scatter scheme), keyed by their rank
   among the slab's seeds (capped at ``max_blobs + W // 2 + 1``) and tagged
   with the global component and, on the shard that holds the component's
   minimum, its creation label (its rank among the frame's seeds).  The
@@ -202,7 +203,7 @@ def label_components_sharded(img, mesh: Mesh, space_axis: str = "space",
 # --------------------------------------------------------------------------
 
 
-def _blob_rows(binary, local, glob, w: int, cap: int):
+def _blob_rows(binary, local, glob, w: int, cap: int, kernels: bool):
     """Each shard's statistic rows, gathered on the first shard's device
     (``grayskull_tpu/parallel/sparse.py:211 _shard_blob_rows``).
 
@@ -213,7 +214,8 @@ def _blob_rows(binary, local, glob, w: int, cap: int):
     slab's pixels, as in the JAX version.  Each row holds the global
     component minimum (``rep``), area, coordinate sums, box and, on the
     shard holding the component's minimum, its creation label: the
-    minimum's rank among the frame's seeds.  Returns nine int64 tensors.
+    minimum's rank among the frame's seeds.  ``kernels=False`` reduces with
+    K22's plain version.  Returns nine int64 tensors.
     """
     ns = len(binary)
     h_loc = binary[0].shape[0]
@@ -236,7 +238,7 @@ def _blob_rows(binary, local, glob, w: int, cap: int):
         dense = torch.where(fg.view(-1), rank_slab.take(lab.clamp(min=0).to(torch.int64)), 0)
         dense = torch.where(dense <= cap_loc, dense, 0)
         seg = _Segments(dense.view(1, -1), cap_loc + 1, w)
-        area, sx, sy, mnx, mny, mxx, mxy = seg.stats(row0)
+        area, sx, sy, mnx, mny, mxx, mxy = seg.stats(row0, plain=not kernels)
         g = glob[s].view(-1).to(torch.int64)
         rep = seg.extreme(g, "amin", _BIG)
         gidx = torch.arange(h_loc * w, dtype=torch.int64, device=dev) + row0 * w
@@ -321,8 +323,9 @@ def blobs_sharded(img, mesh: Mesh, max_blobs: int, space_axis: str = "space",
     cap = _check_cap(max_blobs)
     frame, _, slabs = _space_slabs(img, mesh, space_axis)
     w = frame.shape[1]
-    local, glob = _label_shards(slabs, w, kernels is not False)
-    return _blob_table(_merge_rows(_blob_rows(slabs, local, glob, w, cap), cap), cap)
+    use = kernels is not False
+    local, glob = _label_shards(slabs, w, use)
+    return _blob_table(_merge_rows(_blob_rows(slabs, local, glob, w, cap, use), cap), cap)
 
 
 # --------------------------------------------------------------------------
@@ -419,7 +422,7 @@ def scan_spatial_shardmap(img, mesh: Mesh, out_size=(1000, 800), max_blobs: int 
     use = kernels is not False
     binary = _binarize(slabs, h, w, use)
     local, glob = _label_shards(binary, w, use)
-    b_rep, cx, cy = _largest(_merge_rows(_blob_rows(binary, local, glob, w, cap), cap))
+    b_rep, cx, cy = _largest(_merge_rows(_blob_rows(binary, local, glob, w, cap, use), cap))
     corners = _corners(glob, b_rep, cx, cy, w)
     warp = quad_warp_rows if use else quad_warp_rows_plain
     pieces = []

@@ -27,7 +27,8 @@ from grayskull_tpu.pipelines.scan import preprocess_binarize as jax_preprocess_b
 from grayskull_tpu.pipelines.scan import scan as jax_scan
 from grayskull_tpu_torch import kernels as K
 from grayskull_tpu_torch.core import blobs_from_arrays
-from tests.test_torch_cuda import host_arrays_on_cpu, snake, spiral  # noqa: F401
+from tests.test_torch_cuda import (BLOB_STATS_CASES, blob_stats_case,  # noqa: F401
+                                   host_arrays_on_cpu, snake, spiral)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "tests", "golden", "testdata")
@@ -424,3 +425,65 @@ def test_blob_corners_golden_and_no_pixel(goldens):
     want = jax_blob_corners(img, labels.numpy(), 999, gt.Rect(0, 0, 5, 5), gt.Point(17, 3))
     np.testing.assert_array_equal(none.numpy(), np.asarray(want))
     assert none.tolist() == [[17, 3]] * 4
+
+
+def _blob_stats_numpy(seg, nseg, w, row0):
+    """(7, N, nseg) int64: each label's area, coordinate sums and extremes,
+    label by label (label 0 left out; 2^62 and -1 where a label is empty)."""
+    n, npix = seg.shape
+    out = np.zeros((7, n, nseg), np.int64)
+    out[3:5], out[5:] = 2**62, -1
+    ys, xs = np.divmod(np.arange(npix, dtype=np.int64), w)
+    ys += row0
+    for f in range(n):
+        order = np.argsort(seg[f], kind="stable")
+        cuts = np.flatnonzero(np.diff(seg[f][order])) + 1
+        for pix in np.split(order, cuts):
+            label = int(seg[f, pix[0]])
+            if label:
+                x, y = xs[pix], ys[pix]
+                out[:, f, label] = [pix.size, x.sum(), y.sum(), x.min(), y.min(), x.max(),
+                                    y.max()]
+    return out
+
+
+@pytest.mark.parametrize("name", ["document_1", *BLOB_STATS_CASES])
+def test_blob_stats_plain_matches_numpy(name):
+    seg, nseg, w, row0 = blob_stats_case(name, "cpu")
+    want = _blob_stats_numpy(seg.numpy(), nseg, w, row0)
+    got = K.blob_stats(seg, nseg, w, row0)  # a CPU tensor: the plain version
+    for k, (a, b) in enumerate(zip(got, K.blob_stats_plain(seg, nseg, w, row0))):
+        assert a.dtype == torch.int64 and tuple(a.shape) == (seg.shape[0], nseg)
+        assert torch.equal(a, b), k
+        np.testing.assert_array_equal(a.numpy(), want[k], err_msg=f"{name} field {k}")
+
+
+def test_blob_stats_path_follows_the_shared_table():
+    """36 bytes a label in 227 KB of shared memory: 6456 labels fit a block."""
+    assert K.blobs.path(1) == K.blobs.path(1001) == K.blobs.path(6456) == "blob_stats"
+    assert K.blobs.path(6457) == K.blobs.path(7000) == "blob_stats_global"
+
+
+def test_blob_stats_wrapper_checks_its_input():
+    seg = torch.zeros((2, 12), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        K.blob_stats(seg.to(torch.int64), 3, 4)
+    with pytest.raises(TypeError):
+        K.blob_stats(seg.numpy(), 3, 4)
+    with pytest.raises(ValueError):  # rank
+        K.blob_stats(seg.view(2, 3, 4), 3, 4)
+    with pytest.raises(ValueError):  # rank
+        K.blob_stats(seg[0], 3, 4)
+    for nseg in (0, -1, 2.0, True, None):
+        with pytest.raises(ValueError):
+            K.blob_stats(seg, nseg, 4)
+    with pytest.raises(ValueError):  # not whole rows
+        K.blob_stats(seg, 3, 5)
+    with pytest.raises(ValueError):
+        K.blob_stats(seg, 3, 0)
+    with pytest.raises(ValueError):
+        K.blob_stats(seg, 3, 4, row0=-1)
+    with pytest.raises(ValueError):  # rows past 2^31
+        K.blob_stats(seg, 3, 4, row0=2**31 - 2)
+    with pytest.raises(ValueError):
+        K.blob_stats(torch.zeros((2, 24), dtype=torch.int32)[:, ::2], 3, 4)

@@ -174,7 +174,8 @@ def test_preprocess_launches_every_kernel_on_card(cuda_device):
     counts = K.launch_counts()
     assert counts == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 1, "integral": 0,
                       "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0, "orb_brief": 0,
-                      "ccl": 0, "quad_warp": 0, **NO_DENSE, **NO_SHARDED}
+                      "ccl": 0, "quad_warp": 0, "blob_stats": 0, "blob_stats_global": 0,
+                      **NO_DENSE, **NO_SHARDED}
     ref = gt.preprocess(imgs, force_reference=True)
     assert K.launch_counts() == counts
     for a, b in zip(out, ref):
@@ -381,7 +382,8 @@ def test_detect_faces_launches_its_kernels_on_card(cuda_device):
     assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0,
                                  "integral": 1, "lbp_eval_scale": nscales, "fast": 0,
                                  "orb_moments": 0, "orb_brief": 0, "ccl": 0, "quad_warp": 0,
-                                 **NO_DENSE, **NO_SHARDED}
+                                 "blob_stats": 0, "blob_stats_global": 0, **NO_DENSE,
+                                 **NO_SHARDED}
     ref = gt.detect_faces(frames, step=2, force_reference=True)
     assert K.launch_counts()["lbp_eval_scale"] == nscales
     on_cpu = gt.detect_faces(frames.cpu(), step=2)
@@ -763,12 +765,96 @@ def test_scan_launches_its_kernels_on_card(cuda_device):
     pages, corners = gt.scan(frames.to(cuda_device))
     assert K.launch_counts() == {"blur_hist": 1, "otsu": 1, "threshold_sobel": 0, "integral": 0,
                                  "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0,
-                                 "orb_brief": 0, "ccl": 1, "quad_warp": 1, **NO_DENSE,
-                                 **NO_SHARDED}
+                                 "orb_brief": 0, "ccl": 1, "quad_warp": 1, "blob_stats": 1,
+                                 "blob_stats_global": 0, **NO_DENSE, **NO_SHARDED}
     ref = gt.scan(frames.to(cuda_device), force_reference=True)
     on_cpu = gt.scan(frames)
     for a, b, c in zip((pages, corners), ref, on_cpu):
         assert a.is_cuda and torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+# K22's cases: named label maps (each an (N, P) int32 map of labels below nseg)
+BLOB_STATS_CASES = ["noise_500_labels", "past_the_cap_zeroed", "nseg_1", "all_background",
+                    "slab_row0_700", "sums_past_2_32", "nseg_past_the_shared_table",
+                    "width_7_scalar_loads", "dense_page_blob"]
+
+
+def document_labels(n, device):
+    """``scan``'s label map of ``n`` document pages rolled 3*i columns, 1000 labels."""
+    doc = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/document.pgm")
+    frames = torch.from_numpy(np.stack([np.roll(doc, 3 * i, axis=1) for i in range(n)]))
+    labels = gt.blobs(gt.preprocess_binarize(frames.to(device)), 1000)[1]
+    return labels.to(torch.int32).view(n, -1), 1001, doc.shape[1], 0
+
+
+def blob_stats_case(name, device):
+    """(seg, nseg, w, row0) of one of K22's cases (``BLOB_STATS_CASES``, or
+    ``document_<pages>``) on ``device``."""
+    if name.startswith("document_"):
+        return document_labels(int(name.split("_")[1]), device)
+    rng = np.random.default_rng(BLOB_STATS_CASES.index(name) + 60)
+    if name == "noise_500_labels":  # hundreds of labels, most of them small
+        seg, nseg, w, row0 = rng.integers(0, 500, (3, 61 * 83)), 500, 83, 0
+    elif name == "past_the_cap_zeroed":  # labels past a cap of 600 dropped to 0, as blobs does
+        seg = rng.integers(0, 2000, (2, 90 * 120))
+        seg, nseg, w, row0 = np.where(seg <= 600, seg, 0), 601, 120, 0
+    elif name == "nseg_1":
+        seg, nseg, w, row0 = np.zeros((2, 33 * 47)), 1, 47, 0
+    elif name == "all_background":
+        seg, nseg, w, row0 = np.zeros((2, 64 * 96)), 1001, 96, 0
+    elif name == "slab_row0_700":  # a sparse slab: n = 1, rows counted from 700, runs of 8
+        seg = np.repeat(rng.integers(0, 40, (1, 256 * 768 // 8)), 8, axis=1)
+        seg, nseg, w, row0 = seg, 40, 768, 700
+    elif name == "sums_past_2_32":  # one label on 2100 x 2100: sum_x, sum_y past 2^32
+        seg, nseg, w, row0 = np.ones((1, 2100 * 2100)), 2, 2100, 0
+    elif name == "nseg_past_the_shared_table":  # 7000 labels: the global-atomics path
+        seg, nseg, w, row0 = rng.integers(0, 7000, (2, 100 * 128)), 7000, 128, 0
+    elif name == "width_7_scalar_loads":  # P % 4 != 0: quads cross rows and frames
+        seg = np.repeat(rng.integers(0, 6, (3, 11 * 7 // 3 + 1)), 3, axis=1)[:, :11 * 7]
+        seg, nseg, w, row0 = seg, 6, 7, 0
+    elif name == "dense_page_blob":  # one label under most pixels, holes and other blobs
+        page = np.ones((1024, 768), np.int64)
+        page[::9, ::7] = 0
+        page[100:300, 50:400] = 2
+        page[600:, 500:] = 3
+        seg, nseg, w, row0 = np.stack([page, np.roll(page, 5, 1)]).reshape(2, -1), 1001, 768, 0
+    else:
+        raise KeyError(name)
+    return torch.from_numpy(np.ascontiguousarray(seg, np.int32)).to(device), nseg, w, row0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["document_1", "document_16", "document_32", *BLOB_STATS_CASES])
+def test_blob_stats_matches_plain_on_card(cuda_device, name):
+    """K22 against its plain version, all seven outputs equal, at a 16-byte-aligned
+    label map and at one 4 bytes off (scalar loads); the launch counted under
+    its path's key."""
+    seg, nseg, w, row0 = blob_stats_case(name, cuda_device)
+    key = K.blobs.path(nseg)
+    assert (key == "blob_stats_global") == (name == "nseg_past_the_shared_table")
+    want = K.blob_stats_plain(seg, nseg, w, row0)
+    off = torch.zeros(seg.numel() + 1, dtype=torch.int32, device=cuda_device)[1:].view(seg.shape)
+    off.copy_(seg)
+    for x in (seg, off):
+        got, counts = _no_sync(K.blob_stats, x, nseg, w, row0)
+        assert counts == {key: 1}, x.data_ptr() % 16
+        for field, a, b in zip(("area", "sum_x", "sum_y", "min_x", "min_y", "max_x", "max_y"),
+                               got, want):
+            assert a.dtype == torch.int64 and torch.equal(a, b), (field, x.data_ptr() % 16)
+    if name == "sums_past_2_32":
+        assert int(want[1][0, 1]) >= 2**32
+
+
+@pytest.mark.cuda
+def test_scan_reduces_its_blobs_in_one_launch_without_a_sync_on_card(cuda_device):
+    doc = gt.io.read_pgm(__file__.rsplit("/", 1)[0] + "/golden/testdata/document.pgm")
+    frames = torch.from_numpy(np.stack([np.roll(doc, 7 * i, axis=1) for i in range(5)]))
+    frames = frames.to(cuda_device)
+    want = gt.scan(frames, force_reference=True)
+    got, counts = _no_sync(gt.scan, frames)
+    assert counts == {"blur_hist": 1, "otsu": 1, "ccl": 1, "blob_stats": 1, "quad_warp": 1}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -788,7 +874,8 @@ def test_kernel_spans_count_the_launches_of_a_scan_call_on_card(cuda_device):
     counts = {k: v for k, v in K.launch_counts().items() if v}
     spans = collections.Counter(s.name.removeprefix("gs.kernels.") for s in profiling.spans()
                                 if s.name.startswith("gs.kernels."))
-    assert counts == dict(spans) == {"blur_hist": 1, "otsu": 1, "ccl": 1, "quad_warp": 1}
+    assert counts == dict(spans) == {"blur_hist": 1, "otsu": 1, "ccl": 1, "blob_stats": 1,
+                                     "quad_warp": 1}
     assert len({s.call for s in profiling.spans()}) == 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -916,7 +1003,8 @@ def test_adaptive_morph_launches_its_kernels_on_card(cuda_device):
     assert K.launch_counts() == {"blur_hist": 0, "otsu": 0, "threshold_sobel": 0, "integral": 0,
                                  "lbp_eval_scale": 0, "fast": 0, "orb_moments": 0,
                                  "orb_brief": 0, "ccl": 0, "quad_warp": 0, "adaptive": 1,
-                                 "morph": 2, "filter3": 0, "resize": 0, **NO_SHARDED}
+                                 "morph": 2, "filter3": 0, "resize": 0, "blob_stats": 0,
+                                 "blob_stats_global": 0, **NO_SHARDED}
     on_cpu = gt.erode(gt.dilate(gt.adaptive_threshold(frames, 15, 5)))
     assert out.is_cuda and torch.equal(out.cpu(), on_cpu)
 
@@ -1102,7 +1190,7 @@ def test_contour_entry_points_launch_once_on_card(cuda_device):
     img = _twelve_blobs()
     g = torch.from_numpy(img).to(cuda_device)
     found_on_card, counts = _no_sync(gt.find_contours, g, 16, 64)
-    assert counts == {"ccl": 1, "contour": 1}
+    assert counts == {"ccl": 1, "blob_stats": 1, "contour": 1}
     assert int(found_on_card.n) == 12
     on_cpu = gt.find_contours(torch.from_numpy(img), 16, 64)
     for a, b in zip([found_on_card.n, *found_on_card.box, *found_on_card.start,
@@ -1110,7 +1198,7 @@ def test_contour_entry_points_launch_once_on_card(cuda_device):
                     [on_cpu.n, *on_cpu.box, *on_cpu.start, on_cpu.length, on_cpu.visited]):
         assert torch.equal(a.cpu(), b)
     (largest, found), counts = _no_sync(gt.largest_blob_contour, g)
-    assert counts == {"ccl": 1, "contour": 1} and bool(found)
+    assert counts == {"ccl": 1, "blob_stats": 1, "contour": 1} and bool(found)
     c, counts = _no_sync(gt.trace_contour, g, (30, 20), largest.visited)
     assert counts == {"contour": 1}
     ref = gt.trace_contour(torch.from_numpy(img), (30, 20), largest.visited.cpu())
@@ -1148,7 +1236,8 @@ def test_sparse_sharded_on_card(cuda_device):
     for a, b in zip(_blob_leaves(got), _blob_leaves(gt.blobs(binary, 1000)[0])):
         assert torch.equal(a, b)
     (page, corners), counts = _no_sync_but_one(par.scan_spatial_shardmap, frame, mesh)
-    assert counts == {"blur_hist_window": 4, "otsu": 1, "ccl": 4, "quad_warp_rows": 4}
+    assert counts == {"blur_hist_window": 4, "otsu": 1, "ccl": 4, "blob_stats": 4,
+                      "quad_warp_rows": 4}
     ref_page, ref_corners = gt.scan(frame)
     assert torch.equal(page, ref_page) and torch.equal(corners, ref_corners)
     aruco = torch.from_numpy(gt.io.read_pgm(__file__.rsplit("/", 1)[0]

@@ -218,12 +218,14 @@ def test_plain_runs_on_cpu_without_counting():
     K.match_template(imgs, imgs[0, :2, :3].contiguous())
     K.contour(imgs[0], torch.zeros_like(imgs[0]), start=(1, 1))
     K.fs_sin(K.fs_atan2(torch.ones(3), torch.ones(3)), 1.57079)
+    K.blob_stats(torch.ones((2, 12), dtype=torch.int32), 3, 4)
+    K.blob_stats(torch.ones((2, 12), dtype=torch.int32), 7000, 4)
     assert K.launch_counts() == before
     assert set(before) == {"blur_hist", "threshold_sobel", "otsu", "integral", "lbp_eval_scale",
                            "fast", "orb_moments", "orb_brief", "ccl", "quad_warp", "adaptive",
                            "morph", "filter3", "resize", "blur_hist_window",
                            "threshold_sobel_window", "copy", "triad", "match_template", "contour",
-                           "quad_warp_rows", "freestanding"}
+                           "quad_warp_rows", "freestanding", "blob_stats", "blob_stats_global"}
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 8), (2, 97, 200), (3, 1, 40), (1, 130, 257)])
@@ -614,7 +616,7 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
     assert {s.name for s in srcs} == {"preproc.cu", "otsu.cu", "integral.cu", "lbp.cu", "fast.cu",
                                       "patches.cu", "ccl.cu", "warp.cu", "stencil3.cu",
                                       "resize.cu", "bandwidth.cu", "template.cu", "contour.cu",
-                                      "freestanding.cu"}
+                                      "freestanding.cu", "blobs.cu"}
     for src in srcs:  # one nvcc per source, started together
         cmd = _build.compile_command(src, tmp_path / f"{src.stem}.o")
         assert cmd[0].endswith("nvcc")
@@ -639,7 +641,8 @@ def test_build_command_targets_hopper_without_fma(tmp_path):
                                        "gs_resize", "gs_blur_hist_window",
                                        "gs_threshold_sobel_window", "gs_copy", "gs_triad",
                                        "gs_match_template", "gs_contour", "gs_quad_warp_rows",
-                                       "gs_fs_orient", "gs_fs_atan2", "gs_fs_sin"}
+                                       "gs_fs_orient", "gs_fs_atan2", "gs_fs_sin",
+                                       "gs_blob_stats"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

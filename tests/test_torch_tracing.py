@@ -32,6 +32,7 @@ SCAN_TREE = {  # (span, its parent's name) -> spans a call
     ("gs.ops.blobs", "gs.pipelines.scan"): 1,
     ("gs.kernels.ccl", "gs.ops.blobs"): 1,
     ("gs.ops.blobs.stats", "gs.ops.blobs"): 1,
+    ("gs.kernels.blob_stats", "gs.ops.blobs.stats"): 1,
     ("gs.ops.blobs.compact", "gs.ops.blobs"): 1,
     ("gs.ops.blob_corners", "gs.pipelines.scan"): 1,
     ("gs.ops.perspective_correct", "gs.pipelines.scan"): 1,
