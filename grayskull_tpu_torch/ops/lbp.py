@@ -8,6 +8,10 @@ tensor).  Detections are emitted in the reference's (scale, y, x) order with its
 ``torch.topk`` takes the ``max_rects`` largest, which are the first set windows
 in ladder order.  No step of the path reads a value back to the host.
 
+:func:`lbp_detect` is the span ``gs.ops.lbp_detect``, its emission the child
+span ``gs.ops.lbp.emit``; ``counters["windows"]`` counts the windows it
+scored (the ladder's windows a frame times the frames, every call).
+
 Float semantics: the scale ladder (``scale *= scale_factor``) and the window
 and feature scaling (float32 multiply, C truncation) are computed host-side in
 numpy float32, as the JAX package does.
@@ -21,11 +25,14 @@ import time
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core import Rects, as_tensor, host_device
 from ..kernels import _build
 from ..kernels.lbp import _device_tables, lbp_eval_scale, lbp_eval_scale_plain
 
-__all__ = ["lbp_detect", "lbp_warm_start", "lbp_window", "scale_ladder"]
+__all__ = ["counters", "lbp_detect", "lbp_warm_start", "lbp_window", "scale_ladder"]
+
+counters = {"windows": 0}
 
 
 def scale_ladder(cascade, iw: int, ih: int, scale_factor, min_scale, max_scale):
@@ -112,6 +119,7 @@ def _as_integral(ii) -> torch.Tensor:
     return ii
 
 
+@profiling.spanned("gs.ops.lbp_detect")
 def lbp_detect(cascade, ii, max_rects: int, scale_factor=1.2, min_scale=1.0, max_scale=4.0,
                step: int = 1, force_reference: bool = False) -> Rects:
     """Multi-scale sliding-window cascade detection — ``gs_lbp_detect``
@@ -139,7 +147,9 @@ def lbp_detect(cascade, ii, max_rects: int, scale_factor=1.2, min_scale=1.0, max
     else:
         evaluate = lbp_eval_scale_plain if force_reference else lbp_eval_scale
         hits = [evaluate(cascade, iib, scale, ny, nx, step) for scale, _, _, ny, nx in plan]
-        table = _emit_rects(hits, plan, step, cap)
+        counters["windows"] += nb * sum(ny * nx for *_, ny, nx in plan)
+        with profiling.span("gs.ops.lbp.emit"):
+            table = _emit_rects(hits, plan, step, cap)
     return Rects(*(v[0] for v in table)) if single else table
 
 

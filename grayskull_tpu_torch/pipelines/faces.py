@@ -5,6 +5,7 @@ integral -> multi-scale LBP cascade sweep (scales 1.0 -> 4.0 x1.2) -> the first
 ``max_rects`` detections in ladder order.  On a CUDA tensor that is one K4
 launch, one K5 launch per ladder scale and a ``torch.topk`` emission, with no
 host sync; on a CPU tensor the same wrappers run their plain versions.
+:func:`detect_faces` is the span ``gs.pipelines.detect_faces``.
 
 As in the JAX package, ``step`` is the window stride: the reference CLI passes
 its ``min_neighbors`` argument there, and there is no neighbour grouping
@@ -13,6 +14,7 @@ its ``min_neighbors`` argument there, and there is no neighbour grouping
 
 from __future__ import annotations
 
+from .. import profiling
 from ..cascade import load_frontalface
 from ..core import LbpCascade, Rects, as_image
 from ..kernels.integral import integral_plain
@@ -22,6 +24,7 @@ from ..ops.lbp import lbp_detect, lbp_warm_start
 __all__ = ["detect_faces", "warm_start"]
 
 
+@profiling.spanned("gs.pipelines.detect_faces")
 def detect_faces(img, cascade: LbpCascade | None = None, max_rects: int = 100,
                  scale_factor=1.2, min_scale=1.0, max_scale=4.0, step: int = 1,
                  force_reference: bool = False) -> Rects:

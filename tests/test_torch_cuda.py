@@ -882,6 +882,34 @@ def test_kernel_spans_count_the_launches_of_a_scan_call_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernel_spans_count_the_launches_of_a_detect_faces_call_on_card(cuda_device):
+    """In a profiled ``detect_faces`` call on the card K4's and K5's
+    ``gs.kernels.<key>`` spans equal their launch counters' rise, under one
+    ``gs.pipelines.detect_faces`` span; the windows counter rises by the
+    ladder's windows; the call's output is unchanged."""
+    from grayskull_tpu_torch.ops import lbp as lbp_ops
+
+    frames = _frames((3, 120, 161), 71, cuda_device)
+    want = gt.detect_faces(frames)
+    plan = _grid_plan(gt.load_frontalface(), 120, 161, 1.2, 1.0, 4.0, 1)
+    profiling.clear_spans()
+    K.reset_launch_counts()
+    windows = lbp_ops.counters["windows"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        got = gt.detect_faces(frames)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    spans = collections.Counter(s.name.removeprefix("gs.kernels.") for s in profiling.spans()
+                                if s.name.startswith("gs.kernels."))
+    assert counts == dict(spans) == {"integral": 1, "lbp_eval_scale": len(plan)}
+    assert len({s.call for s in profiling.spans()}) == 1
+    assert lbp_ops.counters["windows"] - windows == 3 * sum(ny * nx for *_, ny, nx in plan)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_chip_smoke_profiles_the_same_device_work_with_spans_as_without(cuda_device,
                                                                          monkeypatch):
     """``chip_smoke.profile_calls`` on ``preprocess`` counts the same device

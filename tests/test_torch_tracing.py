@@ -46,6 +46,14 @@ PREPROCESS_TREE = {
 }
 
 
+def _faces_tree(nscales):
+    return {("gs.pipelines.detect_faces", None): 1,
+            ("gs.kernels.integral", "gs.pipelines.detect_faces"): 1,
+            ("gs.ops.lbp_detect", "gs.pipelines.detect_faces"): 1,
+            ("gs.kernels.lbp_eval_scale", "gs.ops.lbp_detect"): nscales,
+            ("gs.ops.lbp.emit", "gs.ops.lbp_detect"): 1}
+
+
 def _pages():
     doc = gt.io.read_pgm(DOC)[::8, ::8]  # 128 x 96
     return torch.from_numpy(np.stack([np.roll(doc, 7 * i, axis=1) for i in range(2)]))
@@ -264,3 +272,32 @@ def test_chip_smokes_device_events_leave_out_the_spans_device_copies():
     prof = types.SimpleNamespace(events=lambda: events)
     assert [e.name for e in chip_smoke.device_events(prof)] == ["blur_hist_kernel",
                                                                 "Memset (Device)"]
+
+
+def test_a_detect_faces_call_forms_its_layer_tree_and_counts_its_windows():
+    """One profiled ``detect_faces`` call: one outermost pipeline span, the LBP
+    op under it with the emission inside, a kernel span for K4 and one for K5
+    a ladder scale (the CPU path: no launch), and the windows counter's rise of
+    the ladder's windows times the frames; outside a session nothing is stored."""
+    from grayskull_tpu_torch import kernels as K
+    from grayskull_tpu_torch.ops import lbp as lbp_ops
+    from grayskull_tpu_torch.ops.lbp import _grid_plan
+
+    frames = torch.from_numpy(np.random.default_rng(37).integers(0, 256, (2, 40, 57),
+                                                                 dtype=np.uint8))
+    plan = _grid_plan(gt.load_frontalface(), 40, 57, 1.2, 1.0, 4.0, 1)
+    assert len(plan) == 3
+    profiling.clear_spans()
+    off = gt.detect_faces(frames)
+    assert profiling.spans() == []
+    K.reset_launch_counts()
+    windows = lbp_ops.counters["windows"]
+    on, _ = _profiled(gt.detect_faces, frames)
+    assert lbp_ops.counters["windows"] - windows == 2 * sum(ny * nx for *_, ny, nx in plan)
+    assert not any(K.launch_counts().values())
+    calls = _calls(profiling.spans())
+    assert [_tree(c) for c in calls] == [_faces_tree(len(plan))]
+    root = calls[0][-1]
+    assert root.name == "gs.pipelines.detect_faces" and root.parent is None
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
